@@ -10,14 +10,21 @@ with a non-zero exit; no phase catches its own error):
  2. build the hand-written CUDA kernels from src/repro_torch/kernels/csrc;
  3. hold each kernel against its plain PyTorch version on the card, at the
     main path's shapes and a ragged one, and time both, the kernel's bound
-    and one PyTorch call computing the same function;
+    and one PyTorch call computing the same function; and the party-side
+    int8 ``quantize`` on the card against the CPU's, bit for bit;
  4. the main path: ``Platform().train`` of qwen3-0.6b at full width (bf16),
     3 parties, 2 FedAvg rounds; the streaming fold must go through the
     pair_fuse kernel. Then the same path at a small size on the card and on
     the CPU from the same weights, which must agree;
  5. the batch path: ``FedAvg().fuse`` of the last round's real updates
     through the fused_agg kernel equals the streaming fold;
- 6. one JSON line with every kernel's numbers, then the result line.
+ 6. the quantised path: the same updates quantised to int8 on the card and
+    fused through the quant_agg kernel (one launch per leaf) stay within
+    the int8 error bound of their exact fusion; then the serve_quantized
+    example at full width;
+ 7. the fused global model saved as a checkpoint and loaded back onto the
+    card, bit for bit;
+ 8. one JSON line with every kernel's numbers, then the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -27,6 +34,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -179,6 +187,83 @@ def time_kernels(torch, gen):
     return pf, fa
 
 
+def check_quant_agg(torch, gen):
+    """K = 1, 3, 4, 17 and 40 (above the TPU kernel's 32-row slab) at the
+    main-path N and a ragged N, and K = 3 at the main-path N from a base one
+    byte past an aligned one: the scalar instance runs for a ragged row
+    length and for a misaligned base. int8 in [-127, 127], positive fp32
+    scales. Tolerance: the kernel and the plain version (a cuBLAS product in
+    full fp32) sum K terms in other orders, so they may differ by K fp32
+    roundings of sum_k |s_k q_kn|."""
+    from repro_torch.kernels.quant_agg import quant_agg
+    from repro_torch.kernels.ref import quant_agg_ref
+
+    cases = [(k, n, 0) for n in (MAIN_N, RAGGED_N) for k in (1, 3, 4, 17, 40)]
+    cases.append((3, MAIN_N, 1))
+    worst = 0.0
+    for k, n, offset in cases:
+        buf = torch.randint(-127, 128, (k * n + offset,), generator=gen,
+                            device="cuda", dtype=torch.int8)
+        q = buf[offset:].view(k, n)
+        s = torch.rand(k, generator=gen, device="cuda") + 1e-3
+        got = quant_agg(q, s)
+        want = quant_agg_ref(q, s)
+        if got.dtype != torch.float32 or got.shape != (n,):
+            raise AssertionError(f"quant_agg: {got.dtype} {tuple(got.shape)}")
+        err = (got - want).abs()
+        del want
+        scale = quant_agg_ref(q.abs(), s)
+        ok = bool((err <= k * 2.0 ** -23 * scale).all())
+        e = float(err.max())
+        log(f"  quant_agg K={k:2d} N={n}{' base+1' if offset else ''}: "
+            f"max_abs_err={e:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"quant_agg disagrees: {e}")
+        worst = max(worst, e)
+        del buf, q, got, err, scale
+    torch.cuda.synchronize()
+    return worst
+
+
+def check_quantize(torch, gen):
+    """The party-side quantize on the card equals the CPU's bit for bit
+    (q and scale), for one fp32 and one bf16 leaf at the main-path N."""
+    from repro_torch.kernels.quant_agg import quantize
+
+    for dt in (torch.float32, torch.bfloat16):
+        x = (0.02 * torch.randn(MAIN_N, generator=gen, device="cuda")).to(dt)
+        q, s = quantize(x)
+        qc, sc = quantize(x.cpu())
+        bad = int((q.cpu() != qc).sum())
+        same_s = s.cpu().view(torch.int32).item() == sc.view(torch.int32).item()
+        log(f"  quantize {str(dt)[6:]} N={MAIN_N}: card vs CPU {bad} q "
+            f"mismatches, scale {float(s):.9e} vs {float(sc):.9e} "
+            f"{'ok' if bad == 0 and same_s else 'FAIL'}")
+        if bad or not same_s:
+            raise AssertionError("quantize on the card differs from the CPU")
+        del x, q, qc
+
+
+def time_quant_agg(torch, gen):
+    """Time quant_agg at K = 3 int8 rows of the largest leaf. No single
+    PyTorch call takes int8 rows with fp32 scales, so it has no library
+    time."""
+    from repro_torch.kernels.quant_agg import quant_agg
+    from repro_torch.kernels.ref import quant_agg_ref
+
+    k, n = 3, MAIN_N
+    q = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand(k, generator=gen, device="cuda") + 1e-3
+    qa = {"ms": cuda_ms(lambda: quant_agg(q, s)),
+          "plain_ms": cuda_ms(lambda: quant_agg_ref(q, s)),
+          "library_ms": None}
+    qa["bound_ms"], qa["bound_by"] = bound_ms(k * n + 4 * n + 4 * k, 2 * k * n)
+    del q
+    torch.cuda.synchronize()
+    return qa
+
+
 # --------------------------------------------------------------------------
 # phase 4: the main path
 # --------------------------------------------------------------------------
@@ -289,6 +374,17 @@ def small_agreement(torch):
 # --------------------------------------------------------------------------
 # phase 5: batch path equals streaming
 # --------------------------------------------------------------------------
+def last_round_updates(res):
+    """(round index, the parties' bf16 models, their example counts) of the
+    main path's last round, read back from the update queue."""
+    rt = res.runtime
+    last = rt.records[-1].round_idx
+    topic = rt.queue.topic(f"updates/{rt.spec.job_id}")
+    msgs = [m.value for m in topic.poll("smoke-check")
+            if m.value["round"] == last]
+    return last, [m["update"] for m in msgs], [m["n_examples"] for m in msgs]
+
+
 def batch_path(torch, res):
     """FedAvg().fuse (fused_agg, bf16 out) of the last round's updates
     against the fold of the same updates (pair_fuse, fp32). Tolerance: the
@@ -300,13 +396,7 @@ def batch_path(torch, res):
     from repro_torch.kernels.fused_agg import fused_agg
     from repro_torch.kernels.pair_fuse import pair_fuse
 
-    rt = res.runtime
-    last = rt.records[-1].round_idx
-    topic = rt.queue.topic(f"updates/{rt.spec.job_id}")
-    msgs = [m.value for m in topic.poll("batch-check")
-            if m.value["round"] == last]
-    updates = [m["update"] for m in msgs]
-    n_ex = [m["n_examples"] for m in msgs]
+    last, updates, n_ex = last_round_updates(res)
     alg = FedAvg()
 
     pair_fuse.launches = fused_agg.launches = 0
@@ -331,6 +421,115 @@ def batch_path(torch, res):
         f"(pair_fuse) on round {last}'s {len(updates)} updates: "
         f"max_abs_err={worst:.3e} ok")
     return launches
+
+
+# --------------------------------------------------------------------------
+# phase 6: the quantised path
+# --------------------------------------------------------------------------
+def quantized_path(torch, res):
+    """The last round's real bf16 party models quantised to int8 on the
+    card, fused with FedAvg's weights (one quant_agg launch per leaf),
+    against fuse_updates of the same updates. Tolerance: the example's
+    bound, 1.05 * sum_k w_k s_k + 1e-7 per leaf: half a quantisation step
+    per update for the int8 rounding, the rest for the bf16 rounding of the
+    exact fusion."""
+    from repro_torch import tree_leaves
+    from repro_torch.fl.fusion import FedAvg
+    from repro_torch.kernels import fuse_quantized, fuse_updates, quantize_update
+    from repro_torch.kernels.quant_agg import quant_agg
+
+    last, updates, n_ex = last_round_updates(res)
+    ws = [FedAvg().weight_of(n) for n in n_ex]
+    weights = [w / sum(ws) for w in ws]
+    t0 = time.perf_counter()
+    qs, ss = zip(*(quantize_update(u) for u in updates))
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+
+    quant_agg.launches = 0
+    t0 = time.perf_counter()
+    fused_q = fuse_quantized(list(qs), list(ss), weights)
+    torch.cuda.synchronize()
+    t_fuse = time.perf_counter() - t0
+    launches = quant_agg.launches
+    n_leaves = len(tree_leaves(updates[0]))
+    if launches != n_leaves:
+        raise AssertionError(f"fuse_quantized made {launches} quant_agg "
+                             f"launches for {n_leaves} leaves")
+
+    exact = fuse_updates(updates, weights)
+    worst = 0.0  # largest error over its bound
+    for i, (a, b) in enumerate(zip(tree_leaves(exact), tree_leaves(fused_q),
+                                   strict=True)):
+        if b.dtype != torch.float32 or b.shape != a.shape:
+            raise AssertionError(f"fused int8 leaf {b.dtype} {tuple(b.shape)}")
+        err = float((a.float() - b).abs().max())
+        bound = sum(w * float(tree_leaves(s)[i]) for w, s in zip(weights, ss))
+        if not err <= 1.05 * bound + 1e-7:
+            raise AssertionError(f"leaf {i}: int8 error {err} > bound {bound}")
+        worst = max(worst, err / bound)
+    log(f"  round {last}'s {len(updates)} updates: quantize_update "
+        f"{t_quant:.3f} s, fuse_quantized ({launches} quant_agg launches) "
+        f"{t_fuse:.3f} s (host clock, synchronised); every leaf within its "
+        f"bound, largest error/bound {worst:.4f} ok")
+    del qs, ss, fused_q, exact
+    return launches
+
+
+def serve_quantized_full(torch):
+    """The serve_quantized example at qwen3-0.6b's full width on the card;
+    it raises itself if a leaf's error exceeds its bound."""
+    from repro_torch import configs
+    from repro_torch.examples import serve_quantized
+
+    cfg = configs.get_config("qwen3-0.6b")
+    t0 = time.perf_counter()
+    out = serve_quantized.run(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ratio = max(e / b for e, b in zip(out["errs"], out["bounds"]))
+    log(f"  serve_quantized.run({cfg.name}, {cfg.dtype}, K=4): max error "
+        f"{max(out['errs']):.6f} (bound {max(out['bounds']):.6f}), largest "
+        f"error/bound {ratio:.4f} over {len(out['errs'])} leaves; t_upd "
+        f"fp32={out['t_upd_fp32']:.2f} s -> int8={out['t_upd_int8']:.2f} s; "
+        f"{wall:.3f} s (host clock) ok")
+
+
+# --------------------------------------------------------------------------
+# phase 7: checkpoint round trip
+# --------------------------------------------------------------------------
+def checkpoint_round_trip(torch, res):
+    """Save the main path's fused global model (bf16) and load it back onto
+    the card ``like=`` itself: every leaf bit-equal, dtype and device
+    kept."""
+    from repro_torch import tree_leaves
+    from repro_torch.ckpt import load_checkpoint, save_checkpoint
+
+    params = res.runtime.global_params
+    step = res.records[-1].round_idx + 1
+    n_bytes = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as d:
+        t0 = time.perf_counter()
+        path = save_checkpoint(d, step, params)
+        t_save = time.perf_counter() - t0
+        size = path.stat().st_size
+        t0 = time.perf_counter()
+        got_step, back = load_checkpoint(d, like=params)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    if got_step != step:
+        raise AssertionError(f"loaded step {got_step}, saved {step}")
+    for a, b in zip(tree_leaves(params), tree_leaves(back), strict=True):
+        if b.dtype != a.dtype or b.device != a.device or b.shape != a.shape:
+            raise AssertionError(f"loaded leaf {b.dtype} {b.device} "
+                                 f"{tuple(b.shape)}")
+        if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+            raise AssertionError("checkpoint round trip changed a leaf")
+    log(f"  {n_bytes / 1e9:.3f} GB of bf16 parameters ({size:,} B on disk): "
+        f"save {t_save:.3f} s, load onto the card {t_load:.3f} s (host "
+        f"clock); every leaf bit-equal ok")
 
 
 def main() -> int:
@@ -373,10 +572,17 @@ def main() -> int:
     err_pf = check_pair_fuse(torch, gen)
     err_fa = check_fused_agg(torch, gen)
     t_pf, t_fa = time_kernels(torch, gen)
+    err_qa = check_quant_agg(torch, gen)
+    check_quantize(torch, gen)
+    t_qa = time_quant_agg(torch, gen)
     for name, t in (("pair_fuse", t_pf), ("fused_agg", t_fa)):
         log(f"  {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by "
             f"{t['bound_by']}), plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms']:.4f} ms")
+    log(f"  quant_agg: {t_qa['ms']:.4f} ms (bound {t_qa['bound_ms']:.4f} ms "
+        f"by {t_qa['bound_by']}), plain {t_qa['plain_ms']:.4f} ms, library "
+        f"none: no single PyTorch call takes int8 rows with fp32 scales, so "
+        f"library_ms is null")
     torch.cuda.empty_cache()
 
     # 4. the main path
@@ -388,7 +594,16 @@ def main() -> int:
     log("phase 5: batch path")
     batch_launches = batch_path(torch, res)
 
-    # 6. the record
+    # 6. the quantised path
+    log("phase 6: quantised path")
+    quant_launches = quantized_path(torch, res)
+    serve_quantized_full(torch)
+
+    # 7. checkpoint
+    log("phase 7: checkpoint round trip")
+    checkpoint_round_trip(torch, res)
+
+    # 8. the record
     kernels = [
         {"name": "pair_fuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pair_fuse.cu",
@@ -399,6 +614,10 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/fused_agg.cu",
          "replaces": "src/repro/kernels/fused_agg.py:42",
          "launches": batch_launches, "max_abs_err": err_fa, **t_fa},
+        {"name": "quant_agg", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/quant_agg.cu",
+         "replaces": "src/repro/kernels/quant_agg.py:37",
+         "launches": quant_launches, "max_abs_err": err_qa, **t_qa},
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -24,10 +24,9 @@ def to_torch(tree: Pytree, device: Union[str, torch.device, None] = None
     dev = get_device(device)
 
     def conv(a) -> torch.Tensor:
-        a = np.ascontiguousarray(a)
+        a = np.asarray(a)  # not ascontiguousarray, which makes 0-d arrays 1-d
         if a.dtype.name == "bfloat16" or a.dtype == np.uint16:
-            bits = torch.from_numpy(a.view(np.int16).copy())
-            return bits.view(torch.bfloat16).to(dev)
+            return bf16_from_bits(a).to(dev)
         return torch.from_numpy(a.copy()).to(dev)
 
     return tree_map(conv, tree)
@@ -36,11 +35,20 @@ def to_torch(tree: Pytree, device: Union[str, torch.device, None] = None
 def to_numpy(tree: Pytree) -> Pytree:
     """tensor tree -> numpy tree on the host; bf16 leaves come back as
     ``uint16`` bit views (``.view(jnp.bfloat16)`` restores them)."""
+    return tree_map(leaf_to_numpy, tree)
 
-    def conv(t: torch.Tensor) -> np.ndarray:
-        t = t.detach().cpu().contiguous()
-        if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16)
-        return t.numpy()
 
-    return tree_map(conv, tree)
+def leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor on the host as numpy; a bf16 tensor as its ``uint16`` bit
+    view."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def bf16_from_bits(a: np.ndarray) -> torch.Tensor:
+    """A CPU bf16 tensor holding the bits of a ``uint16`` (or ml_dtypes
+    bfloat16) array."""
+    bits = torch.from_numpy(np.asarray(a).view(np.int16).copy())
+    return bits.view(torch.bfloat16)

@@ -33,6 +33,8 @@ SIGNATURES = {
                   [_vp, _vp, _vp, _ll, _i, _i, _i, _f, _f, _vp]),
     # updates, weights, out, k, n, dtype, stream
     "fused_agg": ("fused_agg_launch", [_vp, _vp, _vp, _i, _ll, _i, _vp]),
+    # q, scales, out, k, n, stream
+    "quant_agg": ("quant_agg_launch", [_vp, _vp, _vp, _i, _ll, _vp]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

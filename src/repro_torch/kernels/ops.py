@@ -6,13 +6,14 @@ The device of the tensors decides the route: on the card the CUDA kernels,
 on the CPU their plain versions (the reference's ``interpret`` flag)."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch import Pytree, tree_map
+from repro_torch import Pytree, tree_leaves, tree_map, tree_unflatten
 from repro_torch.kernels.fused_agg import fused_agg
 from repro_torch.kernels.pair_fuse import pair_fuse
+from repro_torch.kernels.quant_agg import quant_agg, quantize
 
 
 def fuse_updates(
@@ -57,3 +58,42 @@ def accumulate(acc: Optional[Pytree], update: Pytree, weight: float
         acc,
         update,
     )
+
+
+def fuse_quantized(
+    q_updates: Sequence[Pytree],
+    scales: Sequence[Pytree],
+    weights: Optional[Sequence[float]] = None,
+) -> Pytree:
+    """Fuse int8-quantised updates (beyond-paper comm compression).
+
+    q_updates: K trees of int8 leaves; scales: K trees of 0-d fp32 scales.
+    One quant_agg launch per leaf; the fused leaves stay fp32. Each row's
+    scale is ``scale * weight`` taken in Python doubles and only then cast
+    to fp32, as the reference does (one host sync per leaf and party)."""
+    k = len(q_updates)
+    if k < 1:
+        raise ValueError("fuse_quantized needs at least one update")
+    if weights is None:
+        weights = [1.0 / k] * k
+    qs = [tree_leaves(u) for u in q_updates]
+    ss = [tree_leaves(s) for s in scales]
+    fused = []
+    for i, leaf in enumerate(qs[0]):
+        stack = torch.stack([l[i].reshape(-1) for l in qs])  # (K, N) int8
+        sc = torch.tensor([float(ss[j][i]) * weights[j] for j in range(k)],
+                          dtype=torch.float32, device=stack.device)
+        fused.append(quant_agg(stack, sc).reshape(leaf.shape))
+    return tree_unflatten(q_updates[0], fused)
+
+
+def quantize_update(update: Pytree) -> Tuple[Pytree, Pytree]:
+    """Party-side int8 quantisation of a model update (per-leaf scales):
+    a tree of int8 leaves in the update's shapes and a tree of 0-d fp32
+    scales."""
+    qs, ss = [], []
+    for leaf in tree_leaves(update):
+        q, s = quantize(leaf)
+        qs.append(q.reshape(leaf.shape))
+        ss.append(s)
+    return tree_unflatten(update, qs), tree_unflatten(update, ss)

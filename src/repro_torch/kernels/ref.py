@@ -31,3 +31,8 @@ def pair_fuse_ref(a: torch.Tensor, b: torch.Tensor, op: str, wa: float = 0.5,
     else:
         raise ValueError(op)
     return out.to(a.dtype)
+
+
+def quant_agg_ref(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """q: (K, N) int8; scales: (K,) fp32 -> (N,) fp32 dequantised weighted sum."""
+    return torch.einsum("k,kn->n", scales, q.to(torch.float32))
