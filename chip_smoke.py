@@ -9,9 +9,11 @@ with a non-zero exit; no phase catches its own error):
  1. the card's name and power limit (nvidia-smi);
  2. build the hand-written CUDA kernels from src/repro_torch/kernels/csrc;
  3. hold each kernel against its plain PyTorch version on the card, at the
-    main path's shapes and a ragged one, and time both, the kernel's bound
-    and one PyTorch call computing the same function; and the party-side
-    int8 ``quantize`` on the card against the CPU's, bit for bit;
+    main path's shapes, a ragged one, and for fused_agg and quant_agg one
+    whose K x N exceeds 2**31 (the cost table's rows do), and time both,
+    the kernel's bound and one PyTorch call computing the same function;
+    and the party-side int8 ``quantize`` on the card against the CPU's, bit
+    for bit;
  4. the main path: ``Platform().train`` of qwen3-0.6b at full width (bf16),
     3 parties, 2 FedAvg rounds; the streaming fold must go through the
     pair_fuse kernel. Then the same path at a small size on the card and on
@@ -24,7 +26,16 @@ with a non-zero exit; no phase catches its own error):
     example at full width;
  7. the fused global model saved as a checkpoint and loaded back onto the
     card, bit for bit;
- 8. one JSON line with every kernel's numbers, then the result line.
+ 8. the simulation vehicles priced on the card: a kernel cost table
+    measured through the three kernels at the synthetic fleets' model
+    sizes and qwen3-0.6b's (each row no faster than 0.95 x its roofline,
+    the full-size pair_fuse row within 25 % of phase 4's t_pair probe,
+    written to chiprun_out/), then the main path's measured arrivals
+    replayed as a 16-job fleet and a synthetic 16-job fleet under JIT and
+    eager-AO (JIT must bill fewer container-seconds), and an online
+    service with SLA classes and an autoscaled pool run to drain, all
+    priced by that table;
+ 9. one JSON line with every kernel's numbers, then the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -38,10 +49,12 @@ import tempfile
 import time
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 MAIN_N = 151_936 * 1024  # qwen3-0.6b's largest leaf (embed, lm_head)
 RAGGED_N = 1_000_003
+BIG_K, BIG_N = 8, 300_000_000  # K x N = 2.4e9 > 2**31 elements
+# the synthetic fleets' model sizes (JOB_MIX) and qwen3-0.6b's bf16 model
+TABLE_SIZES = (52_428_800, 209_715_200, 524_288_000, 1_503_264_768)
 SEED = 0
 
 
@@ -67,6 +80,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    from repro_torch.kernels.autotune import HBM_BYTES_PER_S
+
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -118,37 +133,39 @@ def check_pair_fuse(torch, gen):
 
 def check_fused_agg(torch, gen):
     """K = 3 and K = 17 (above the TPU kernel's 8-row tile), fp32 and bf16,
-    main-path and ragged N. Tolerance: the kernel and the plain version
+    main-path and ragged N; and K = 8 fp32 at N = 300,000,000, where row
+    offsets pass 2**31 elements as in the cost table's rows. Tolerance: the kernel and the plain version
     (a cuBLAS product in full fp32) sum K terms in other orders, so they
     may differ by K fp32 roundings of sum_k |w_k u_kn|, and a bf16 output by
     one more bf16 ulp, 2**-7, of the same scale."""
     from repro_torch.kernels.fused_agg import fused_agg
     from repro_torch.kernels.ref import fused_agg_ref
 
+    cases = [(k, n, dt) for n in (MAIN_N, RAGGED_N) for k in (3, 17)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append((BIG_K, BIG_N, torch.float32))
     worst = 0.0
-    for n in (MAIN_N, RAGGED_N):
-        for k in (3, 17):
-            for dt in (torch.float32, torch.bfloat16):
-                u = torch.randn(k, n, generator=gen, device="cuda").to(dt)
-                w = torch.rand(k, generator=gen, device="cuda")
-                w = w / w.sum()
-                got = fused_agg(u, w)
-                want = fused_agg_ref(u, w)
-                if got.dtype != dt or got.shape != (n,):
-                    raise AssertionError(f"fused_agg: {got.dtype} "
-                                         f"{tuple(got.shape)}")
-                scale = torch.einsum("k,kn->n", w, u.float().abs())
-                tol = k * 2.0 ** -23 + (2.0 ** -7 if dt == torch.bfloat16
-                                        else 0.0)
-                err = (got.float() - want.float()).abs()
-                ok = bool((err <= tol * scale).all())
-                e = float(err.max())
-                log(f"  fused_agg K={k:2d} {str(dt)[6:]} N={n}: "
-                    f"max_abs_err={e:.3e} {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(f"fused_agg disagrees: {e}")
-                worst = max(worst, e)
-                del u, got, want, scale, err
+    for k, n, dt in cases:
+        u = torch.randn(k, n, generator=gen, device="cuda").to(dt)
+        w = torch.rand(k, generator=gen, device="cuda")
+        w = w / w.sum()
+        got = fused_agg(u, w)
+        want = fused_agg_ref(u, w)
+        if got.dtype != dt or got.shape != (n,):
+            raise AssertionError(f"fused_agg: {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        scale = torch.einsum("k,kn->n", w, u.float().abs())
+        tol = k * 2.0 ** -23 + (2.0 ** -7 if dt == torch.bfloat16 else 0.0)
+        err = (got.float() - want.float()).abs()
+        ok = bool((err <= tol * scale).all())
+        e = float(err.max())
+        log(f"  fused_agg K={k:2d} {str(dt)[6:]} N={n}: "
+            f"max_abs_err={e:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"fused_agg disagrees: {e}")
+        worst = max(worst, e)
+        del u, got, want, scale, err
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return worst
 
@@ -189,9 +206,10 @@ def time_kernels(torch, gen):
 
 def check_quant_agg(torch, gen):
     """K = 1, 3, 4, 17 and 40 (above the TPU kernel's 32-row slab) at the
-    main-path N and a ragged N, and K = 3 at the main-path N from a base one
-    byte past an aligned one: the scalar instance runs for a ragged row
-    length and for a misaligned base. int8 in [-127, 127], positive fp32
+    main-path N and a ragged N, K = 3 at the main-path N from a base one
+    byte past an aligned one (the scalar instance runs for a ragged row
+    length and for a misaligned base), and K = 8 at N = 300,000,000, where
+    row offsets pass 2**31 elements as in the cost table's rows. int8 in [-127, 127], positive fp32
     scales. Tolerance: the kernel and the plain version (a cuBLAS product in
     full fp32) sum K terms in other orders, so they may differ by K fp32
     roundings of sum_k |s_k q_kn|."""
@@ -199,7 +217,7 @@ def check_quant_agg(torch, gen):
     from repro_torch.kernels.ref import quant_agg_ref
 
     cases = [(k, n, 0) for n in (MAIN_N, RAGGED_N) for k in (1, 3, 4, 17, 40)]
-    cases.append((3, MAIN_N, 1))
+    cases += [(3, MAIN_N, 1), (BIG_K, BIG_N, 0)]
     worst = 0.0
     for k, n, offset in cases:
         buf = torch.randint(-127, 128, (k * n + offset,), generator=gen,
@@ -221,6 +239,7 @@ def check_quant_agg(torch, gen):
             raise AssertionError(f"quant_agg disagrees: {e}")
         worst = max(worst, e)
         del buf, q, got, err, scale
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return worst
 
@@ -532,6 +551,119 @@ def checkpoint_round_trip(torch, res):
         f"clock); every leaf bit-equal ok")
 
 
+# --------------------------------------------------------------------------
+# phase 8: the simulation vehicles priced on the card
+# --------------------------------------------------------------------------
+def cost_table(torch, res, card):
+    """The kernel cost table measured through the three CUDA kernels (CUDA
+    events, mean of 10 launches after 3 warmups, cold L2), beside its
+    roofline; dumped to chiprun_out/. A measured row faster than 0.95 x its
+    roofline means a wrong byte count or timing; the full-size pair_fuse
+    row times what phase 4's probe timed on the host clock, so the two may
+    differ by at most 25 %."""
+    from repro_torch.kernels import autotune
+
+    torch.cuda.empty_cache()
+    measured = autotune.build_cost_table(TABLE_SIZES, basis="measured")
+    roof = autotune.build_cost_table(TABLE_SIZES, basis="roofline")
+    log(f"  cost table on {card} (t_pair per pair, CUDA events):")
+    log("  kernel,model_bytes,K,measured_ms,roofline_ms,measured/roofline")
+    for m, r in zip(measured.entries, roof.entries, strict=True):
+        ratio = m.t_pair_s / r.t_pair_s
+        log(f"  {m.kernel},{m.model_bytes},{m.kb},{m.t_pair_s * 1e3:.4f},"
+            f"{r.t_pair_s * 1e3:.4f},{ratio:.4f}")
+        if ratio < 0.95:
+            raise AssertionError(f"{m.kernel} at {m.model_bytes} B: "
+                                 f"measured faster than its roofline")
+    full = measured.t_pair(TABLE_SIZES[-1])
+    probe = res.runtime.t_pair0
+    log(f"  pair_fuse at {TABLE_SIZES[-1]} B: table {full * 1e3:.4f} ms, "
+        f"phase 4's probe {probe * 1e3:.4f} ms (host clock), "
+        f"ratio {full / probe:.4f}")
+    if abs(full / probe - 1.0) > 0.25:
+        raise AssertionError("the cost table and the t_pair probe disagree")
+    out = Path(__file__).resolve().parent / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    measured.dump(out / "kernel_cost_table.json")
+    log(f"  wrote {out / 'kernel_cost_table.json'}")
+    return measured
+
+
+def fleets(table, res, card):
+    """The main path's measured arrivals as a 16-job fleet, and the
+    synthetic 16-job fleet, each under JIT and eager-AO on fresh platforms
+    priced by the measured table. JIT must bill fewer container-seconds."""
+    from repro_torch.api import Platform
+    from repro_torch.fleet import fleet_from_measured, synthetic_fleet
+
+    rt = res.runtime
+    traces = {"measured x16": fleet_from_measured(
+                  rt.spec, rt.measured_rounds, n_jobs=16),
+              "synthetic x16": synthetic_fleet(16)}
+    log(f"  fleets priced by the measured table ({card}; virtual clock):")
+    for name, trace in traces.items():
+        out = {}
+        for strategy in ("jit", "eager_ao"):
+            platform = Platform(cost_table=table)
+            runner = platform.submit_fleet(trace, strategy)
+            platform.run()
+            if not runner.all_done:
+                raise AssertionError(f"{name} {strategy}: jobs unfinished")
+            out[strategy] = f = runner.result().fleet
+            log(f"  {name} {strategy}: {f.rounds_done} rounds, "
+                f"{f.container_seconds:.4f} container-s, latency p50 "
+                f"{f.p50_latency_s:.4f} s p95 {f.p95_latency_s:.4f} s, "
+                f"estimator calib_scale {platform.estimator.calib_scale:.1f}")
+        jit, ao = (out[s].container_seconds for s in ("jit", "eager_ao"))
+        log(f"  {name}: JIT saves {100.0 * (1.0 - jit / ao):.2f} % of "
+            f"eager-AO's container-seconds")
+        if not jit < ao:
+            raise AssertionError(f"{name}: JIT billed {jit} >= eager-AO {ao}")
+
+
+def online_service(table, card):
+    """``Platform.serve`` with the burst knobs of the reference's online
+    benchmark (18 mixed jobs, Poisson + diurnal arrivals, a 3x burst, the
+    gold/silver/best_effort ladder by arrival index, a pool autoscaled
+    from 2 between 1 and 8), priced by the measured table, run to drain."""
+    import dataclasses
+
+    from repro_torch.api import Platform
+    from repro_torch.core import ClusterConfig
+    from repro_torch.fleet import synthetic_fleet
+    from repro_torch.online import (
+        SLA_CLASSES, AdmissionConfig, AutoscalerConfig, TraceStream)
+
+    cycle = ("gold", "silver", "best_effort")
+    ladder = {**SLA_CLASSES,
+              "gold": dataclasses.replace(SLA_CLASSES["gold"],
+                                          lateness_p95_band_s=240.0),
+              "silver": dataclasses.replace(SLA_CLASSES["silver"],
+                                            lateness_p95_band_s=900.0)}
+    stream = TraceStream(
+        synthetic_fleet(18, "mixed", seed=0), timing="poisson",
+        mean_interarrival_s=120.0, diurnal_period_s=2400.0,
+        diurnal_amplitude=0.3, burst=(800.0, 2400.0, 3.0), seed=0)
+    platform = Platform(ClusterConfig(capacity=2), cost_table=table)
+    svc = platform.serve(
+        stream, sla=lambda jt, idx: cycle[idx % len(cycle)],
+        sla_classes=ladder,
+        autoscaler=AutoscalerConfig(min_capacity=1, max_capacity=8),
+        admission=AdmissionConfig(burst_window_s=300.0, burst_arrivals=4),
+        window_s=600.0)
+    report = svc.drain()
+    if not svc.dashboard().done:
+        raise AssertionError("the online service did not drain")
+    f = report.fleet
+    log(f"  online service priced by the measured table ({card}; virtual "
+        f"clock): {json.dumps(report.summary())}")
+    log(f"  online totals: {f.n_jobs} jobs, {f.rounds_done} rounds, "
+        f"{f.container_seconds:.4f} container-s, latency p50 "
+        f"{f.p50_latency_s:.4f} s p95 {f.p95_latency_s:.4f} s, "
+        f"{svc.n_scale_ups} scale-ups, {svc.n_scale_downs} scale-downs, "
+        f"{len(report.shed_jobs)} shed; drained ok")
+
+
 def main() -> int:
     import torch
 
@@ -603,7 +735,13 @@ def main() -> int:
     log("phase 7: checkpoint round trip")
     checkpoint_round_trip(torch, res)
 
-    # 8. the record
+    # 8. the simulation vehicles priced on the card
+    log(f"phase 8: the simulation vehicles priced on the card ({smi})")
+    table = cost_table(torch, res, smi)
+    fleets(table, res, smi)
+    online_service(table, smi)
+
+    # 9. the record
     kernels = [
         {"name": "pair_fuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pair_fuse.cu",

@@ -11,8 +11,8 @@ cores is bounded by how many updates fit in accelerator memory
 Two sources of t_pair, in priority order:
 
 1. **Measured kernel cost table** (``cost_table=KernelCostTable``): t_pair
-   interpolated from autotuned Pallas kernel timings per model size
-   (`repro.kernels.autotune`). This closes the sim-to-real loop — the
+   interpolated from the CUDA fusion kernels' timings per model size
+   (`repro_torch.kernels.autotune`). This closes the sim-to-real loop — the
    simulator prices fuse work from measured hardware, not config constants.
 2. **Config constant** (``t_pair_s``): the historical default; every golden
    baseline runs this path and is bit-identical to pre-cost-table builds.
@@ -40,11 +40,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 import numpy as np
 
 from repro_torch.core.jobspec import FLJobSpec
+
+if TYPE_CHECKING:  # pragma: no cover - typing only, avoids import weight
+    from repro_torch.kernels.autotune import KernelCostTable
 
 
 @dataclasses.dataclass(frozen=True)

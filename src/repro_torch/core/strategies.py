@@ -74,7 +74,7 @@ from typing import Callable, Dict, List, Optional, Set, Tuple, Union
 
 import numpy as np
 
-from repro_torch.core.cluster import AlwaysOnContainer, Cluster
+from repro_torch.core.cluster import AlwaysOnContainer, Cluster, ClusterConfig
 from repro_torch.core.estimator import AggregationEstimator, usable_cores
 from repro_torch.core.events import Simulator
 from repro_torch.core.jobspec import FLJobSpec
@@ -977,4 +977,52 @@ def StrategyRun(
         on_round_complete=on_round_complete,
         external_arrivals=external_arrivals,
         gated_rounds=gated_rounds,
+    )
+
+
+def run_strategy(
+    job: FLJobSpec,
+    strategy: str,
+    *,
+    t_pair_s: float = 0.05,
+    cluster_config: Optional[ClusterConfig] = None,
+    estimator: Optional[AggregationEstimator] = None,
+    batch_trigger: int = 10,
+    seed: int = 0,
+    noise_rel: float = 0.02,
+    dropout_prob: float = 0.0,
+    opportunistic: bool = False,
+    jit_policy: str = "orderstat",
+    margin_sigmas: float = 0.0,
+    keepalive_factor: float = 1.0,
+    amort_factor: float = 4.0,
+    eager_max_per_invocation: int = 32,
+) -> JobMetrics:
+    """Run one job end-to-end under a strategy (pre-``Platform`` shim).
+
+    Thin wrapper over ``repro.api.run_job``; kept for backward
+    compatibility. Note: ``margin_sigmas`` now actually feeds the orderstat
+    t_rnd safety margin; its default is 0 (the former default of 2.0 was
+    stored but never read, i.e. behaved as 0).
+    """
+    from repro_torch.api import run_job
+
+    policy = PolicyConfig(
+        strategy=strategy,
+        batch_trigger=batch_trigger,
+        jit_policy=jit_policy,
+        margin_sigmas=margin_sigmas,
+        keepalive_factor=keepalive_factor,
+        amort_factor=amort_factor,
+        eager_max_per_invocation=eager_max_per_invocation,
+        opportunistic=opportunistic,
+    )
+    return run_job(
+        job, policy,
+        cluster_config=cluster_config,
+        estimator=estimator,
+        t_pair_s=t_pair_s,
+        seed=seed,
+        noise_rel=noise_rel,
+        dropout_prob=dropout_prob,
     )

@@ -1,10 +1,24 @@
-"""Sim-time tracing and the metrics registry the simulated cluster reports
-into (the dashboard stays with a later slice)."""
-from repro_torch.obs.registry import Counter, Histogram, MetricsRegistry  # noqa: F401
-from repro_torch.obs.trace import (  # noqa: F401
-    NULL_TRACER,
-    NullTracer,
-    Span,
-    TraceEvent,
-    Tracer,
-)
+"""``repro.obs`` — sim-time tracing, metrics, and the live dashboard.
+
+Zero-overhead when disabled: every component defaults to the shared
+``NULL_TRACER`` singleton and guards emission on ``tracer.enabled``.
+Enable by passing a ``Tracer`` via ``Platform(tracer=...)`` or
+``Platform.serve(..., trace=...)``; export with
+``tracer.export_chrome(path)`` (Perfetto-loadable) and reconcile billing
+with ``tracer.reconcile(cluster)``.
+"""
+from repro_torch.obs.dashboard import DashboardView
+from repro_torch.obs.registry import Counter, Histogram, MetricsRegistry
+from repro_torch.obs.trace import NULL_TRACER, NullTracer, Span, TraceEvent, Tracer
+
+__all__ = [
+    "Counter",
+    "DashboardView",
+    "Histogram",
+    "MetricsRegistry",
+    "NULL_TRACER",
+    "NullTracer",
+    "Span",
+    "TraceEvent",
+    "Tracer",
+]
