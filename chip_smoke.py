@@ -16,8 +16,10 @@ with a non-zero exit; no phase catches its own error):
     for bit;
  4. the main path: ``Platform().train`` of qwen3-0.6b at full width (bf16),
     3 parties, 2 FedAvg rounds; the streaming fold must go through the
-    pair_fuse kernel. Then the same path at a small size on the card and on
-    the CPU from the same weights, which must agree;
+    pair_fuse kernel. One real fold of a party's update (all 14 leaves,
+    synchronised) is timed beside the t_pair probe, which must predict it
+    within 25 %. Then the same path at a small size on the card and on the
+    CPU from the same weights (``conditioned``), which must agree;
  5. the batch path: ``FedAvg().fuse`` of the last round's real updates
     through the fused_agg kernel equals the streaming fold;
  6. the quantised path: the same updates quantised to int8 on the card and
@@ -29,20 +31,36 @@ with a non-zero exit; no phase catches its own error):
  8. the simulation vehicles priced on the card: a kernel cost table
     measured through the three kernels at the synthetic fleets' model
     sizes and qwen3-0.6b's (each row no faster than 0.95 x its roofline,
-    the full-size pair_fuse row within 25 % of phase 4's t_pair probe,
-    written to chiprun_out/), then the main path's measured arrivals
+    the full-size pair_fuse row within 25 % of phase 4's t_pair probe
+    scaled to the row's bytes, written to chiprun_out/), then the main
+    path's measured arrivals
     replayed as a 16-job fleet and a synthetic 16-job fleet under JIT and
     eager-AO (JIT must bill fewer container-seconds), and an online
     service with SLA classes and an autoscaled pool run to drain, all
     priced by that table;
- 9. one JSON line with every kernel's numbers, then the result line.
+ 9. the other families at full width (bf16), each freed before the next:
+    ``Platform().train`` of qwen1.5-4b (q/k/v bias, 3 of 40 layers),
+    qwen2.5-14b (GQA + bias, 3 of 48 layers) and qwen2-moe-a2.7b (60
+    experts top-4 + 4 shared, 3 of 24 layers), 3 parties, 2 FedAvg rounds,
+    every fold through pair_fuse, the eval loss finite and lower than the
+    initial model's (a smoke signal only), one real fold timed beside the
+    probe; for the MoE config also the batch path through fused_agg on its
+    real updates and a training step bit-equal when repeated; then phase
+    4's small card-vs-CPU agreement for the bias and the MoE families;
+10. the examples on the card: ``federated_100m`` at full width and depth
+    (example-100m, 4 parties, 10 FedProx rounds of 192 sequences), which
+    must diverge where the JAX package's example does, ``quickstart``'s
+    training half and ``multijob_scheduler``;
+11. one JSON line with every kernel's numbers, then the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -56,6 +74,12 @@ BIG_K, BIG_N = 8, 300_000_000  # K x N = 2.4e9 > 2**31 elements
 # the synthetic fleets' model sizes (JOB_MIX) and qwen3-0.6b's bf16 model
 TABLE_SIZES = (52_428_800, 209_715_200, 524_288_000, 1_503_264_768)
 SEED = 0
+# phase 9: (config, layers kept) at full width. Without qk_norm, the
+# reference's init makes the gradient grow about tenfold a layer, and plain
+# SGD blows the residual stream up past a few layers
+# (scripts/torch_lr_sweep.py); 3 layers train at the main path's lr in all
+# three. PERF.md gives the memory reckoning.
+FAMILIES = (("qwen1.5-4b", 3), ("qwen2.5-14b", 3), ("qwen2-moe-a2.7b", 3))
 
 
 def log(*a) -> None:
@@ -338,56 +362,136 @@ def main_path(torch):
     log(f"  metrics: {res.metrics}")
     if launches["pair_fuse"] <= 0:
         raise AssertionError("the main path never launched pair_fuse")
-    for rec in res.records:
-        if not (rec.global_loss == rec.global_loss and rec.global_loss < 1e9):
-            raise AssertionError(f"round {rec.round_idx} loss not finite")
-    specs = tree_leaves(M.param_specs(cfg))
-    for s, p in zip(specs, tree_leaves(rt.global_params), strict=True):
-        if tuple(p.shape) != s.shape or p.dtype != torch.bfloat16:
-            raise AssertionError(f"fused leaf {tuple(p.shape)} {p.dtype}")
-        if not bool(torch.isfinite(p).all()):
-            raise AssertionError("fused parameters not finite")
+    check_trained(torch, cfg, res, loss0)
+    fold_against_probe(torch, res)
     del init
     return res, launches
 
 
-def small_agreement(torch):
+def check_trained(torch, cfg, res, loss0):
+    """Every round's eval loss finite, the last below the initial model's
+    ``loss0``, and the fused model finite with the config's shapes in
+    bf16."""
+    from repro_torch import tree_leaves
+    from repro_torch.models import model as M
+
+    for rec in res.records:
+        if not (rec.global_loss == rec.global_loss and rec.global_loss < 1e9):
+            raise AssertionError(f"round {rec.round_idx} loss not finite")
+    if not res.records[-1].global_loss < loss0:
+        raise AssertionError(f"eval loss did not drop: {loss0} -> "
+                             f"{res.records[-1].global_loss}")
+    specs = tree_leaves(M.param_specs(cfg))
+    for s, p in zip(specs, tree_leaves(res.runtime.global_params),
+                    strict=True):
+        if tuple(p.shape) != s.shape or p.dtype != torch.bfloat16:
+            raise AssertionError(f"fused leaf {tuple(p.shape)} {p.dtype}")
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError("fused parameters not finite")
+
+
+def fold_against_probe(torch, res, trials: int = 3) -> None:
+    """One real fold, timed as the probe times itself: the fold that
+    ``AggregationExecutor.drain`` applies to each message
+    (``FusionState.fold``) of the last round's second update into the
+    accumulator holding its first, every leaf, synchronised; the median of
+    ``trials`` after a warmup, on the host clock. The probe
+    (``probe_t_pair``) must predict it within 25 %."""
+    from repro_torch import tree_leaves
+    from repro_torch.fl.fusion import FusionState, get_algorithm
+
+    rt = res.runtime
+    _, updates, n_ex = last_round_updates(res)
+    alg = get_algorithm(rt.spec.aggregation_algorithm)
+    st = FusionState().fold(updates[0], alg.weight_of(n_ex[0]))
+
+    def timed() -> float:
+        t0 = time.perf_counter()
+        st.fold(updates[1], alg.weight_of(n_ex[1]))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    timed()  # warmup
+    fold = statistics.median(timed() for _ in range(trials))
+    ratio = fold / rt.t_pair0
+    log(f"  one real fold ({len(tree_leaves(updates[1]))} leaves, host "
+        f"clock, synchronised): {fold * 1e3:.4f} ms; t_pair probe "
+        f"{rt.t_pair0 * 1e3:.4f} ms; fold / probe {ratio:.4f}")
+    if abs(ratio - 1.0) > 0.25:
+        raise AssertionError("the t_pair probe does not predict the fold")
+
+
+def conditioned(torch, tree, gen):
+    """``tree`` with the attention projections rescaled to a fan-in over
+    their input axes (d_model for wq, wk and wv; heads x head_dim for wo)
+    and the q/k/v biases drawn from N(0, 0.1^2) with ``gen``. The
+    initialisation takes the fan-in from the heads axis, which without
+    qk_norm peaks the attention so sharply that training is chaotic (ROADMAP
+    Queue 3); these weights are not."""
+    import math
+
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = conditioned(torch, v, gen)
+        elif k in ("wq", "wk", "wv"):  # (layers, d, heads, head_dim)
+            out[k] = v * math.sqrt(v.shape[-2] / v.shape[-3])
+        elif k == "wo":  # (layers, heads, head_dim, d)
+            out[k] = v / math.sqrt(v.shape[-3])
+        elif k in ("bq", "bk", "bv"):
+            out[k] = 0.1 * torch.randn(v.shape, generator=gen)
+        else:
+            out[k] = v
+    return out
+
+
+def small_agreement(torch, name: str = "qwen3-0.6b"):
     """The same path at a small size (2 layers, d_model 64, vocab 128, fp32)
-    on the card and on the CPU from the same weights. Tolerance: rtol 1e-4,
-    atol 1e-5 on fused parameters and eval loss (fp32 products summed in
-    other orders over two rounds of local SGD)."""
+    on the card and on the CPU from the same ``conditioned`` weights, 2
+    FedAvg rounds at lr 0.05. Tolerance: rtol 1e-4, atol 1e-5 on eval
+    losses and fused parameters (fp32 products summed in other orders over
+    local SGD).
+
+    The configs without qk_norm need the conditioning: from the seeded
+    initialisation their job is chaotic, the CPU's own result moving by
+    2.8e-5 to 3.6e-5 in one round and by 5.6e-3 to 7.9e-3 in two under a
+    1e-7 change of its weights, and the card's by as much; from the
+    conditioned weights it moves by 3.6e-7, while every leaf moves by 7e-4
+    or more (``scripts/torch_small_agreement.py`` measures both)."""
     from repro_torch import configs, tree_leaves
     from repro_torch.api import Platform
     from repro_torch.core.jobspec import FLJobSpec, PartySpec
     from repro_torch.models import model as M
 
-    cfg = configs.get_config("qwen3-0.6b").reduced(
+    cfg = configs.get_config(name).reduced(
         num_layers=2, d_model=64, vocab_size=128, dtype="float32")
-    init = M.init(cfg, torch.Generator().manual_seed(SEED))
+    init = conditioned(torch, M.init(cfg, torch.Generator().manual_seed(SEED)),
+                       torch.Generator().manual_seed(SEED))
     out = {}
     for dev in ("cuda", "cpu"):
         job = FLJobSpec(
             job_id="small", model_arch=cfg.name,
-            model_bytes=M.n_params(cfg) * 4, rounds=2, lr=0.05, batch_size=8,
+            model_bytes=M.n_params(cfg) * 4, rounds=2, lr=0.05,
+            batch_size=8,
             parties={f"p{i}": PartySpec(f"p{i}") for i in range(3)})
         res = Platform().train(cfg, job, device=dev, initial_params=init,
                                n_sequences=48, eval_sequences=16, seed=SEED)
         out[dev] = res
-    worst = 0.0
     for rc, rp in zip(out["cuda"].records, out["cpu"].records, strict=True):
         if abs(rc.global_loss - rp.global_loss) > 1e-5 + 1e-4 * abs(rp.global_loss):
             raise AssertionError(f"small run: loss {rc.global_loss} vs "
                                  f"{rp.global_loss}")
-    for a, b in zip(tree_leaves(out["cuda"].runtime.global_params),
-                    tree_leaves(out["cpu"].runtime.global_params), strict=True):
-        a = a.cpu()
-        if not torch.allclose(a, b, rtol=1e-4, atol=1e-5):
-            raise AssertionError("small run: fused parameters disagree")
-        worst = max(worst, float((a - b).abs().max()))
-    log(f"  small run card vs CPU: losses "
+    pairs = [(a.cpu(), b) for a, b in zip(
+        tree_leaves(out["cuda"].runtime.global_params),
+        tree_leaves(out["cpu"].runtime.global_params), strict=True)]
+    gaps = [float((a - b).abs().max()) for a, b in pairs]
+    if not all(torch.allclose(a, b, rtol=1e-4, atol=1e-5) for a, b in pairs):
+        raise AssertionError(f"small run: fused parameters disagree; "
+                             f"largest |diff| by leaf {gaps}")
+    log(f"  small {cfg.name} run card vs CPU (conditioned weights): losses "
         f"{[round(r.global_loss, 6) for r in out['cuda'].records]} vs "
         f"{[round(r.global_loss, 6) for r in out['cpu'].records]}, "
-        f"max |fused param diff|={worst:.3e} ok")
+        f"max |fused param diff|={max(gaps):.3e} ok")
 
 
 # --------------------------------------------------------------------------
@@ -558,9 +662,14 @@ def cost_table(torch, res, card):
     """The kernel cost table measured through the three CUDA kernels (CUDA
     events, mean of 10 launches after 3 warmups, cold L2), beside its
     roofline; dumped to chiprun_out/. A measured row faster than 0.95 x its
-    roofline means a wrong byte count or timing; the full-size pair_fuse
-    row times what phase 4's probe timed on the host clock, so the two may
-    differ by at most 25 %."""
+    roofline means a wrong byte count or timing. The full-size pair_fuse
+    row keeps the reference's byte semantics (two fp32 operands of
+    bytes / 4 elements); phase 4's probe times the real fold, an fp32
+    accumulator and a bf16 update of every element. Both are one memory
+    sweep, so the probe, scaled by the bytes each moves
+    (``kernel_bytes_moved`` for the row, 10 B per element for the probe),
+    may differ from the row by at most 25 %."""
+    from repro_torch import tree_leaves
     from repro_torch.kernels import autotune
 
     torch.cuda.empty_cache()
@@ -576,10 +685,16 @@ def cost_table(torch, res, card):
             raise AssertionError(f"{m.kernel} at {m.model_bytes} B: "
                                  f"measured faster than its roofline")
     full = measured.t_pair(TABLE_SIZES[-1])
-    probe = res.runtime.t_pair0
-    log(f"  pair_fuse at {TABLE_SIZES[-1]} B: table {full * 1e3:.4f} ms, "
-        f"phase 4's probe {probe * 1e3:.4f} ms (host clock), "
-        f"ratio {full / probe:.4f}")
+    row_bytes = autotune.kernel_bytes_moved("pair_fuse", 2,
+                                            TABLE_SIZES[-1] // 4)
+    leaves = tree_leaves(res.runtime.global_params)
+    probe_bytes = sum(t.numel() for t in leaves) * (
+        4 + leaves[0].element_size() + 4)
+    probe = res.runtime.t_pair0 * row_bytes / probe_bytes
+    log(f"  pair_fuse at {TABLE_SIZES[-1]} B ({row_bytes:,} B moved): table "
+        f"{full * 1e3:.4f} ms; phase 4's probe {res.runtime.t_pair0 * 1e3:.4f}"
+        f" ms for {probe_bytes:,} B (host clock), scaled to the row's bytes "
+        f"{probe * 1e3:.4f} ms; table / scaled probe {full / probe:.4f}")
     if abs(full / probe - 1.0) > 0.25:
         raise AssertionError("the cost table and the t_pair probe disagree")
     out = Path(__file__).resolve().parent / "chiprun_out"
@@ -664,6 +779,213 @@ def online_service(table, card):
         f"{len(report.shed_jobs)} shed; drained ok")
 
 
+# --------------------------------------------------------------------------
+# phase 9: the other families at full width
+# --------------------------------------------------------------------------
+def free(torch) -> None:
+    """Return what the previous phase's models held to the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def family_path(torch, name: str, layers: int):
+    """``Platform().train`` of ``name`` at full width (bf16) with ``layers``
+    of its layers: 3 parties, 2 FedAvg rounds on phase 4's data sizes, the
+    initial model drawn on the card from the seed. Every fold must go
+    through pair_fuse, the eval loss must drop and stay finite, and the
+    probe must predict one real fold."""
+    from repro_torch import configs
+    from repro_torch.api import Platform
+    from repro_torch.core.jobspec import FLJobSpec, PartySpec
+    from repro_torch.kernels.fused_agg import fused_agg
+    from repro_torch.kernels.pair_fuse import pair_fuse
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(configs.get_config(name), num_layers=layers)
+    n_params = M.n_params(cfg)
+    job = FLJobSpec(
+        job_id=f"{name}-smoke", model_arch=cfg.name,
+        model_bytes=n_params * 2, aggregation_algorithm="fedavg", rounds=2,
+        lr=0.05, batch_size=8,
+        parties={f"p{i}": PartySpec(f"p{i}") for i in range(3)},
+    )
+    log(f"{cfg.name}: L={layers} of {configs.get_config(name).num_layers} "
+        f"d={cfg.d_model} H={cfg.num_heads}/{cfg.num_kv_heads} "
+        f"hd={cfg.head_dim} ff={cfg.d_ff} V={cfg.vocab_size} "
+        f"bias={cfg.qkv_bias} experts={cfg.num_experts} "
+        f"top-{cfg.num_experts_per_tok} shared={cfg.num_shared_experts} "
+        f"{cfg.dtype}: {n_params:,} params ({n_params * 2 / 1e9:.3f} GB), "
+        f"{job.n_parties} parties, {job.rounds} rounds")
+    free(torch)
+    pair_fuse.launches = fused_agg.launches = 0
+    t0 = time.perf_counter()
+    res = Platform().train(cfg, job, n_sequences=48, eval_sequences=16,
+                           seed=SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"pair_fuse": pair_fuse.launches,
+                "fused_agg": fused_agg.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rt = res.runtime
+    with torch.no_grad():  # the runtime's initial model, drawn again
+        init = M.init(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+        batch = {k: torch.from_numpy(v.astype("int64")).cuda()
+                 for k, v in rt.eval_data.items() if k != "domains"}
+        loss0 = float(M.loss_fn(cfg, init, batch)[0])
+        del init, batch
+    for rec, measured in zip(res.records, rt.measured_rounds):
+        log(f"  round {rec.round_idx}: eval loss {rec.global_loss:.6f}; "
+            f"local training (host clock, s): "
+            + ", ".join(f"{p}={t:.4f}" for p, (t, _) in measured.items()))
+    log(f"  eval loss before={loss0:.6f} after="
+        f"{res.records[-1].global_loss:.6f}; Platform.train wall={wall:.3f} s"
+        f" (host clock, calibration, probe and eval included); peak device "
+        f"memory={peak:.2f} GiB; launches {launches}")
+    if launches["pair_fuse"] <= 0:
+        raise AssertionError(f"{name}: no fold launched pair_fuse")
+    check_trained(torch, cfg, res, loss0)
+    fold_against_probe(torch, res)
+    log(f"  peak device memory with the fold timed: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return res
+
+
+def moe_extras(torch, res) -> None:
+    """The MoE config's batch path (``FedAvg().fuse`` through fused_agg) on
+    its real updates against the streaming fold; and one training step's
+    gradient computed twice, bit-equal (the dispatch and combine have a
+    fixed order of additions, ``models/moe.py``)."""
+    from repro_torch import tree_leaves
+
+    batch_path(torch, res)
+    log(f"  peak device memory with the batch path: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    rt = res.runtime
+    party = rt.parties["p0"]
+    batch = party._to_device(next(party.loader.epoch(shuffle=False)))
+    first, loss = party._grad_step(rt.global_params, batch)
+    again, _ = party._grad_step(rt.global_params, batch)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(first),
+                                                 tree_leaves(again)))
+    log(f"  one training step's gradient (loss {float(loss):.6f}) repeated: "
+        f"{'bit-equal' if same else 'DIFFERS'}")
+    if not same:
+        raise AssertionError("the MoE training step is not deterministic")
+    del first, again
+
+
+# --------------------------------------------------------------------------
+# phase 10: the examples on the card
+# --------------------------------------------------------------------------
+def recorded_steps(losses: dict):
+    """Patch ``Party.local_round`` so that every local step appends its
+    loss to ``losses[party_id]`` (calibration is not recorded); returns
+    the undo. ``local_round`` reads each step's loss on the host already,
+    so the record adds no synchronisation."""
+    from repro_torch.fl.party import Party
+
+    local_round = Party.local_round
+
+    def recording(self, global_params, epochs=1):
+        step = self._step
+
+        def counted(*a):
+            out = step(*a)
+            losses.setdefault(self.party_id, []).append(float(out[2]))
+            return out
+
+        self._step = counted
+        try:
+            return local_round(self, global_params, epochs)
+        finally:
+            del self._step
+
+    Party.local_round = recording
+    return lambda: setattr(Party, "local_round", local_round)
+
+
+def examples(torch) -> None:
+    """``federated_100m`` at its defaults (example-100m at full width and
+    depth, 4 parties, 10 FedProx rounds of 192 sequences), ``quickstart``'s
+    training half and ``multijob_scheduler``; each fold through pair_fuse.
+
+    ``federated_100m`` must run its 10 rounds and price them on a finite
+    timeline, and diverge where the JAX package's example does at these
+    settings (``scripts/federated_100m_nan.py``, on the CPU): in round 0
+    every party's first step starts near ln(V) and blows the model up
+    (step 1's loss 7.7e8 to 8.7e11 in both packages), and its loss is no
+    longer finite by step 2 (by step 3 for one party of the port's, bf16
+    overflowing a step later), so every eval loss is NaN."""
+    from repro_torch.examples import (federated_100m, multijob_scheduler,
+                                      quickstart)
+    from repro_torch.kernels.pair_fuse import pair_fuse
+
+    free(torch)
+    pair_fuse.launches = 0
+    losses: dict = {}
+    undo = recorded_steps(losses)
+    t0 = time.perf_counter()
+    try:
+        out = federated_100m.run()
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = out["result"]
+    log(f"  federated_100m: eval loss by round "
+        f"{[r.global_loss for r in res.records]}; {res.metrics.strategy} "
+        f"container-seconds {out['container_seconds']:.4f} (virtual clock); "
+        f"mean t_rnd prediction error (rounds 2+) "
+        f"{100 * out['t_rnd_pred_err']:.2f} %; wall {wall:.3f} s (host "
+        f"clock); {pair_fuse.launches} pair_fuse launches; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    first_bad = {}
+    for pid, xs in sorted(losses.items()):
+        first_bad[pid] = next(
+            (k for k, x in enumerate(xs) if x != x or abs(x) == float("inf")),
+            None)
+        log(f"  {pid}'s first local steps: losses {xs[:4]}; first "
+            f"non-finite at step {first_bad[pid]}")
+    if pair_fuse.launches <= 0:
+        raise AssertionError("federated_100m never launched pair_fuse")
+    timeline = (out["container_seconds"], out["t_rnd_pred_err"])
+    if len(res.records) != 10 or not all(0 <= x < 1e9 for x in timeline):
+        raise AssertionError(f"federated_100m: {len(res.records)} rounds, "
+                             f"timeline {timeline}")
+    diverged = sorted(losses) == [f"p{i}" for i in range(4)] and all(
+        xs[0] < 20.0 and xs[1] > 1e6 and first_bad[pid] in (2, 3)
+        for pid, xs in losses.items()) and all(
+        r.global_loss != r.global_loss for r in res.records)
+    if not diverged:
+        raise AssertionError("federated_100m does not diverge where the "
+                             "JAX package's example does")
+    del out, res
+
+    free(torch)
+    pair_fuse.launches = 0
+    t0 = time.perf_counter()
+    res, ao = quickstart.train()  # raises itself if the loss did not drop
+    torch.cuda.synchronize()
+    log(f"  quickstart.train: {len(res.records)} rounds, loss "
+        f"{res.records[0].global_loss:.6f} -> "
+        f"{res.records[-1].global_loss:.6f}"
+        f", JIT {res.metrics.container_seconds:.4f} vs always-on "
+        f"{ao.container_seconds:.4f} container-s (virtual clock); wall "
+        f"{time.perf_counter() - t0:.3f} s; {pair_fuse.launches} pair_fuse "
+        f"launches; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if pair_fuse.launches <= 0:
+        raise AssertionError("quickstart never launched pair_fuse")
+    del res, ao
+
+    _, metrics = multijob_scheduler.main()
+    if sum(m.rounds_done for m in metrics.values()) != 12:
+        raise AssertionError("multijob_scheduler: rounds missing")
+
+
 def main() -> int:
     import torch
 
@@ -740,8 +1062,25 @@ def main() -> int:
     table = cost_table(torch, res, smi)
     fleets(table, res, smi)
     online_service(table, smi)
+    del res, table
 
-    # 9. the record
+    # 9. the other families at full width
+    log(f"phase 9: the other families at full width ({smi})")
+    for name, layers in FAMILIES:
+        res = family_path(torch, name, layers)
+        if res.runtime.cfg.num_experts:
+            moe_extras(torch, res)
+        del res
+    # phase 4's small agreement for each family (qwen1.5-4b's reduced
+    # config is qwen2.5-14b's)
+    for name in ("qwen2.5-14b", "qwen2-moe-a2.7b"):
+        small_agreement(torch, name)
+
+    # 10. the examples
+    log(f"phase 10: the examples on the card ({smi})")
+    examples(torch)
+
+    # 11. the record
     kernels = [
         {"name": "pair_fuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pair_fuse.cu",

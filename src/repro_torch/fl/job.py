@@ -18,7 +18,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch import Pytree, get_device, tree_map
+from repro_torch import Pytree, get_device, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cluster import Cluster, ClusterConfig
 from repro_torch.core.estimator import AggregationEstimator
@@ -51,31 +51,34 @@ class RoundRecord:
     global_loss: float
 
 
-def probe_t_pair(model_bytes: int, device: torch.device,
-                 trials: int = 3) -> float:
+def probe_t_pair(n_elements: int, update_dtype: torch.dtype,
+                 device: torch.device, trials: int = 3) -> float:
     """Offline t_pair measurement (§5.4): median time of one ``pair_fuse``
-    wsum over two fp32 vectors of ``model_bytes`` already on ``device``,
-    after a warmup, with the device synchronised inside each timed call.
-    On the card the probe is the full model size; the CPU probes at most
-    ``CPU_PROBE_CAP`` bytes and scales linearly (fusion is linear in
-    bytes)."""
-    probe = model_bytes if device.type == "cuda" else min(model_bytes,
-                                                         CPU_PROBE_CAP)
-    n = max(probe // 4, 1)
+    wsum that folds an update of ``n_elements`` in ``update_dtype`` into
+    an fp32 accumulator of the same length, already on ``device``, after a
+    warmup, with the device synchronised inside each timed call. That is
+    the aggregator's fold of one whole model (``kernels.ops.accumulate``):
+    the runtime passes the global model's element count and its leaves'
+    dtype. On the card the probe is the full model; the CPU probes at most
+    ``CPU_PROBE_CAP`` bytes of accumulator and scales linearly (fusion is
+    linear in bytes)."""
+    n = n_elements if device.type == "cuda" else min(n_elements,
+                                                     CPU_PROBE_CAP // 4)
+    n = max(n, 1)
     gen = torch.Generator(device=device).manual_seed(0)
-    a = torch.randn(n, generator=gen, device=device)
-    b = torch.randn(n, generator=gen, device=device)
+    acc = torch.randn(n, generator=gen, device=device)
+    upd = torch.randn(n, generator=gen, device=device).to(update_dtype)
 
     def timed() -> float:
         t0 = time.perf_counter()
-        pair_fuse(a, b, op="wsum", wa=1.0, wb=1.0)
+        pair_fuse(acc, upd, op="wsum", wa=1.0, wb=1.0)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return time.perf_counter() - t0
 
     timed()  # warmup
     t_pair = statistics.median(timed() for _ in range(max(trials, 3)))
-    return t_pair * model_bytes / probe
+    return t_pair * max(n_elements, 1) / n
 
 
 class FLJobRuntime:
@@ -144,8 +147,11 @@ class FLJobRuntime:
             eval_sequences, seed=seed + 10_000,
         )
         # ---- scheduling machinery -------------------------------------------
-        self.estimator = estimator or AggregationEstimator(
-            probe_t_pair(spec.model_bytes, self.device))
+        if estimator is None:  # every leaf has the config's dtype
+            leaves = tree_leaves(self.global_params)
+            estimator = AggregationEstimator(probe_t_pair(
+                sum(t.numel() for t in leaves), leaves[0].dtype, self.device))
+        self.estimator = estimator
         self.t_pair0 = self.estimator.t_pair_s  # pre-calibration t_pair
         self.cluster_cfg = cluster_config or ClusterConfig()
         # virtual replay: a RoundEngine on a private simulated cluster, fed

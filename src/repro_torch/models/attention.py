@@ -23,8 +23,6 @@ NEG_INF = -1e30
 # specs
 # --------------------------------------------------------------------------
 def attn_specs(cfg: ModelConfig) -> Dict[str, TensorSpec]:
-    if cfg.qkv_bias:
-        raise ValueError("q/k/v projection biases are not ported")
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s: Dict[str, TensorSpec] = {
         "wq": TensorSpec((d, h, hd), ("d_model", "heads", None)),
@@ -32,6 +30,10 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, TensorSpec]:
         "wv": TensorSpec((d, kv, hd), ("d_model", "kv_heads", None)),
         "wo": TensorSpec((h, hd, d), ("heads", None, "d_model")),
     }
+    if cfg.qkv_bias:
+        s["bq"] = TensorSpec((h, hd), ("heads", None), init="zeros")
+        s["bk"] = TensorSpec((kv, hd), ("kv_heads", None), init="zeros")
+        s["bv"] = TensorSpec((kv, hd), ("kv_heads", None), init="zeros")
     if cfg.qk_norm:
         s["q_norm"] = rms_norm_spec(hd)
         s["k_norm"] = rms_norm_spec(hd)
@@ -86,6 +88,10 @@ def _project_qkv(cfg: ModelConfig, p, x):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)

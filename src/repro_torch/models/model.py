@@ -57,14 +57,14 @@ def forward(
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
     h = F.embedding(tokens, params["embed"])
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i, (pattern, reps) in enumerate(cfg.stages()):
-        h = tfm.stage_apply(cfg, pattern, reps, params[f"stage{i}"], h,
-                            positions=positions, training=training)
+        h, aux = tfm.stage_apply(cfg, pattern, reps, params[f"stage{i}"], h,
+                                 positions=positions, training=training)
+        aux_total = aux_total + aux
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = (h @ params["lm_head"]).to(torch.float32)
-    # attn blocks add no auxiliary loss (the MoE router's would go here)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    return logits, aux
+    return logits, aux_total
 
 
 # --------------------------------------------------------------------------
