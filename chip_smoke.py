@@ -51,7 +51,18 @@ with a non-zero exit; no phase catches its own error):
     (example-100m, 4 parties, 10 FedProx rounds of 192 sequences), which
     must diverge where the JAX package's example does, ``quickstart``'s
     training half and ``multijob_scheduler``;
-11. one JSON line with every kernel's numbers, then the result line.
+11. the launchers on the card, each model freed before the next: prefill
+    and 128 greedy decode steps through ``launch.serve`` for qwen3-0.6b,
+    qwen2.5-14b and qwen2-moe-a2.7b at full width and full depth (bf16),
+    each token in the vocabulary, each logit finite, the cache's ``t`` at
+    prompt + tokens, peak memory under 80 GB, and a teacher-forced forward
+    over the same tokens beside it; qwen3-0.6b's decode against its full
+    forward in fp32 at full depth (rtol / atol 2e-2); ``launch.train.main``
+    training qwen3-0.6b at full depth with AdamW, its loss falling over 5
+    steps; then the card against the CPU at reduced sizes from the same
+    ``conditioned`` weights (prefill and 8 decode steps of the three
+    configs, 3 train steps of qwen3-0.6b);
+12. one JSON line with every kernel's numbers, then the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -80,6 +91,11 @@ SEED = 0
 # (scripts/torch_lr_sweep.py); 3 layers train at the main path's lr in all
 # three. PERF.md gives the memory reckoning.
 FAMILIES = (("qwen1.5-4b", 3), ("qwen2.5-14b", 3), ("qwen2-moe-a2.7b", 3))
+# phase 11: (config, batch) served at full width and depth, with the prompt
+# length and the greedy decode steps; PERF.md gives the memory reckoning
+SERVES = (("qwen3-0.6b", 8), ("qwen2.5-14b", 4), ("qwen2-moe-a2.7b", 4))
+PROMPT, TOKENS = 1024, 128
+CARD_BYTES = 80e9
 
 
 def log(*a) -> None:
@@ -424,7 +440,8 @@ def fold_against_probe(torch, res, trials: int = 3) -> None:
 def conditioned(torch, tree, gen):
     """``tree`` with the attention projections rescaled to a fan-in over
     their input axes (d_model for wq, wk and wv; heads x head_dim for wo)
-    and the q/k/v biases drawn from N(0, 0.1^2) with ``gen``. The
+    and the q/k/v biases drawn from N(0, 0.1^2) with ``gen`` (a CPU
+    generator; each bias takes its leaf's device and dtype). The
     initialisation takes the fan-in from the heads axis, which without
     qk_norm peaks the attention so sharply that training is chaotic (ROADMAP
     Queue 3); these weights are not."""
@@ -439,7 +456,8 @@ def conditioned(torch, tree, gen):
         elif k == "wo":  # (layers, heads, head_dim, d)
             out[k] = v / math.sqrt(v.shape[-3])
         elif k in ("bq", "bk", "bv"):
-            out[k] = 0.1 * torch.randn(v.shape, generator=gen)
+            out[k] = (0.1 * torch.randn(v.shape, generator=gen)).to(
+                v.device, v.dtype)
         else:
             out[k] = v
     return out
@@ -986,6 +1004,360 @@ def examples(torch) -> None:
         raise AssertionError("multijob_scheduler: rounds missing")
 
 
+# --------------------------------------------------------------------------
+# phase 11: the launchers on the card
+# --------------------------------------------------------------------------
+def teacher_forced(torch, cfg, params, prompt, gen):
+    """Logits of one full ``forward`` over the prompt and the generated
+    tokens, at the positions that predicted ``gen`` (B, n, V). A sequence
+    longer than one 256-query chunk is padded at its end to a whole number
+    of chunks (the reference's attention needs that): the forward is
+    causal, so the padding changes no earlier position."""
+    from repro_torch.models import model as M
+
+    seq = torch.cat([prompt, gen[:, :-1]], dim=1)
+    n = seq.shape[1]
+    pad = (-n) % 256 if n > 256 else 0
+    seq = torch.nn.functional.pad(seq, (0, pad))
+    with torch.no_grad():
+        logits, _, _ = M.forward(cfg, params, seq)
+    s = prompt.shape[1]
+    out = logits[:, s - 1:s - 1 + gen.shape[1]].clone()
+    del logits
+    return out
+
+
+def agreement(torch, cfg, params, prompt, out) -> tuple[float, float]:
+    """(share of ``out``'s greedy tokens that a teacher-forced forward over
+    the same tokens also picks, largest gap between their logits)."""
+    tf = teacher_forced(torch, cfg, params, prompt, out.tokens)
+    share = float((tf.argmax(-1) == out.tokens).float().mean())
+    return share, float((tf - out.logits).abs().max())
+
+
+def serve_full(torch, name: str, batch: int, card: str) -> dict:
+    """``launch.serve.generate`` of ``name`` at full width and depth (bf16)
+    on the card: a prompt of PROMPT tokens prefilled into PROMPT + TOKENS
+    slots, then TOKENS greedy decode steps, each synchronised. The weights
+    and the prompt are drawn on the card from the seed. Fails unless every
+    token lies in the vocabulary, every logit is finite, the cache's ``t``
+    is PROMPT + TOKENS and peak memory stays under 80 GB.
+
+    Then a teacher-forced forward over the same tokens: the share of greedy
+    tokens it also picks, and the largest logit gap (reported). For a
+    config without qk_norm the seeded weights give no reading: their
+    forward is chaotic, a 1e-7 change of the weights moving the logits by
+    up to 4.7 (``scripts/torch_forward_chaos.py``), so the comparison is
+    repeated, untimed, from ``conditioned`` weights. The MoE's capacity
+    grows with the sequence (``models/moe.py``), so its prefill, its
+    one-token decode and the longer forward drop different tokens; the
+    conditioned comparison gives it a capacity factor at which no expert
+    drops a token."""
+    from repro_torch import configs, tree_leaves
+    from repro_torch.kernels.autotune import HBM_BYTES_PER_S
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = configs.get_config(name)
+    free(torch)
+    params = M.init(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    prompt = torch.randint(
+        0, cfg.vocab_size, (batch, PROMPT), device="cuda", dtype=torch.int32,
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    serve.generate(cfg, params, prompt[:, :64], 4, 68)  # warm the libraries
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.generate(cfg, params, prompt, TOKENS, PROMPT + TOKENS,
+                         timed=True, keep_logits=True)
+    peak = torch.cuda.max_memory_allocated()
+    gen, t = out.tokens, int(out.cache["t"])
+    in_vocab = bool(((gen >= 0) & (gen < cfg.vocab_size)).all())
+    kv_bytes = sum(x.numel() * x.element_size()
+                   for x in tree_leaves(out.cache))
+    p_bytes = M.n_params(cfg) * 2
+    steady = out.step_s[8:]
+    ms = statistics.median(steady) * 1e3
+    bound = (p_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    out.cache = None
+    agree, gap = agreement(torch, cfg, params, prompt, out)
+    row = {"config": name, "layers": cfg.num_layers, "batch": batch,
+           "prompt": PROMPT, "tokens": TOKENS,
+           "prefill_ms": out.prefill_s * 1e3, "decode_ms": ms,
+           "decode_ms_min": min(steady) * 1e3,
+           "decode_ms_max": max(steady) * 1e3,
+           "tokens_per_s": batch * 1e3 / ms,
+           "decode_bound_ms": bound, "peak_gib": peak / 2**30,
+           "kv_cache_gb": kv_bytes / 1e9, "params_gb": p_bytes / 1e9,
+           "greedy_agree": agree, "max_logit_gap": gap}
+    log(f"  serve {name} ({cfg.num_layers} layers, B {batch}, prompt "
+        f"{PROMPT}, {TOKENS} tokens; {card}): prefill {row['prefill_ms']:.3f}"
+        f" ms, decode {ms:.4f} ms per token (median of steps 9-{TOKENS}, "
+        f"{row['decode_ms_min']:.4f}-{row['decode_ms_max']:.4f}; host clock,"
+        f" synchronised), {row['tokens_per_s']:.1f} tokens/s; bound "
+        f"{bound:.4f} ms ({p_bytes / 1e9:.3f} GB of weights + "
+        f"{kv_bytes / 1e9:.3f} GB of cache at 3.35 TB/s); peak "
+        f"{row['peak_gib']:.2f} GiB; t={t}; greedy tokens the teacher-forced"
+        f" forward also picks {100 * agree:.2f} %, largest logit gap "
+        f"{gap:.4e}; first row {gen[0, :8].tolist()}")
+    if not (out.finite and in_vocab and t == PROMPT + TOKENS
+            and gen.shape == (batch, TOKENS + 1) and peak < CARD_BYTES):
+        raise AssertionError(f"serve {name}: finite={out.finite} "
+                             f"in_vocab={in_vocab} t={t} shape="
+                             f"{tuple(gen.shape)} peak={peak}")
+    if not cfg.qk_norm:
+        params = conditioned(torch, params, torch.Generator().manual_seed(SEED))
+        if cfg.num_experts:  # a capacity of S slots an expert drops nothing
+            cfg = dataclasses.replace(
+                cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+        out = serve.generate(cfg, params, prompt, TOKENS, PROMPT + TOKENS,
+                             keep_logits=True)
+        out.cache = None
+        agree, gap = agreement(torch, cfg, params, prompt, out)
+        row["conditioned_greedy_agree"] = agree
+        row["conditioned_max_logit_gap"] = gap
+        log(f"  from conditioned weights: greedy tokens the teacher-forced "
+            f"forward also picks {100 * agree:.2f} %, largest logit gap "
+            f"{gap:.4e}; all finite: {out.finite}")
+    del params, prompt, out
+    return row
+
+
+def decode_profile(torch, card: str) -> dict:
+    """Where a decode step of qwen3-0.6b (bf16, B 8, prompt 1024, cache of
+    1152 slots) goes: 20 steps unsynchronised (host enqueue and wall time
+    a step), 5 under ``torch.profiler`` (kernels a step, device busy time a
+    step, so the device's idle share), and the step captured as one CUDA
+    graph and replayed. The capture fails if the step waits on the host
+    anywhere (``t`` and the ring slot stay on the device); the graph's
+    logits against an eager step from the same cache are reported."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs, tree_map
+    from repro_torch.models import model as M
+
+    cfg = configs.get_config("qwen3-0.6b")
+    free(torch)
+    params = M.init(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    prompt = torch.randint(
+        0, cfg.vocab_size, (8, PROMPT), device="cuda", dtype=torch.int32,
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    _, cache = M.prefill(cfg, params, prompt, capacity=PROMPT + TOKENS)
+    tok = prompt[:, -1:].clone()
+    for _ in range(3):
+        M.decode_step(cfg, params, cache, tok)
+    torch.cuda.synchronize()
+    n = 20
+    t0 = time.perf_counter()
+    for _ in range(n):
+        M.decode_step(cfg, params, cache, tok)
+    enqueue = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            M.decode_step(cfg, params, cache, tok)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 5 / 1e3  # us -> ms
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            M.decode_step(cfg, params, cache, tok)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits_g, _ = M.decode_step(cfg, params, cache, tok)
+    twin = tree_map(torch.clone, cache)
+    logits_e, _ = M.decode_step(cfg, params, twin, tok)
+    graph.replay()
+    diff = float((logits_g - logits_e).abs().max())
+    del twin
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        graph.replay()
+    torch.cuda.synchronize()
+    replay = (time.perf_counter() - t0) / n
+    row = {"enqueue_ms": enqueue * 1e3, "wall_ms": wall * 1e3,
+           "kernels_per_step": len(kernels) / 5, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / (wall * 1e3),
+           "graph_replay_ms": replay * 1e3, "graph_vs_eager_max_diff": diff}
+    log(f"  qwen3-0.6b decode step (B 8, cache 1152; {card}): host enqueue "
+        f"{row['enqueue_ms']:.3f} ms, wall {row['wall_ms']:.3f} ms a step "
+        f"(20 unsynchronised, host clock); {row['kernels_per_step']:.0f} "
+        f"kernels and {busy:.3f} ms of device time a step (torch.profiler),"
+        f" idle share {row['idle_share']:.4f}; captured as one CUDA graph "
+        f"(no host sync in the step): replay {row['graph_replay_ms']:.3f} ms"
+        f" a step, logits against an eager step {diff:.3e}")
+    del params, cache, graph, logits_g, logits_e
+    return row
+
+
+def decode_matches_forward(torch) -> float:
+    """qwen3-0.6b at full width and depth in fp32 (TF32 off): 32 greedy
+    decode steps after a prompt of 256 against a teacher-forced forward over
+    the same tokens, within the reference's ``test_decode_matches_full_
+    forward`` bound, rtol / atol 2e-2. Returns the largest gap."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(configs.get_config("qwen3-0.6b"),
+                              dtype="float32")
+    free(torch)
+    params = M.init(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    prompt = torch.randint(
+        0, cfg.vocab_size, (2, 256), device="cuda", dtype=torch.int32,
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
+    out = serve.generate(cfg, params, prompt, 32, 256 + 32, keep_logits=True)
+    tf = teacher_forced(torch, cfg, params, prompt, out.tokens)
+    err = (out.logits - tf).abs()
+    gap = float(err.max())
+    ok = bool((err <= 2e-2 + 2e-2 * tf.abs()).all())
+    log(f"  decode == forward, {cfg.name} {cfg.num_layers} layers fp32, B 2,"
+        f" prompt 256, 32 tokens: largest logit gap {gap:.4e} (bound 2e-2 + "
+        f"2e-2 |logit|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("decode does not match the full forward")
+    del params, out, tf, err
+    return gap
+
+
+def train_full(torch) -> dict:
+    """``launch.train.main`` on the card: qwen3-0.6b at full width and depth
+    (bf16 parameters, fp32 AdamW moments), 5 steps of batch 8 x 128 tokens.
+    It must return 0 with every loss finite, and the loss at step 4 below
+    the loss at step 0."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    argv = ["--arch", "qwen3-0.6b", "--steps", "5", "--seq-len", "128",
+            "--batch", "8"]
+    free(torch)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    steps = [(float(m[1]), float(m[2])) for m in re.finditer(
+        r"step \d+: loss=(\S+) \((\S+)s\)", text)]
+    losses = [x for x, _ in steps]
+    row = {"rc": rc, "losses": losses,
+           "step_s": statistics.median(s for _, s in steps[1:]),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "wall_s": wall}
+    log(f"  train.main({' '.join(argv)}): rc {rc}; losses {losses}; step "
+        f"{row['step_s'] * 1e3:.2f} ms (median of steps 1-4, host clock, "
+        f"synchronised by reading the loss); peak {row['peak_gib']:.2f} GiB;"
+        f" {wall:.3f} s in all (initialisation included)")
+    if not (rc == 0 and len(losses) == 5
+            and all(x == x and abs(x) < 1e9 for x in losses)
+            and losses[4] < losses[0]):
+        raise AssertionError(f"train launcher: rc {rc}, losses {losses}")
+    return row
+
+
+def launchers_card_vs_cpu(torch) -> None:
+    """The card against the CPU at reduced sizes (2 layers, d_model 64,
+    vocab 128, fp32) from the same ``conditioned`` weights: prefill of 16
+    tokens and 8 decode steps fed the CPU's greedy tokens, for qwen3-0.6b,
+    qwen2.5-14b and qwen2-moe-a2.7b, logits and caches within rtol 1e-4 /
+    atol 1e-5; and 3 ``make_train_step`` steps (AdamW) of qwen3-0.6b, losses
+    within rtol 1e-4."""
+    from repro_torch import configs, tree_leaves, tree_map
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    def reduced(name):
+        return configs.get_config(name).reduced(
+            num_layers=2, d_model=64, vocab_size=128, dtype="float32")
+
+    def fed(cfg, params, prompt, feed, dev):
+        params = tree_map(lambda x: x.to(dev), params)
+        logits, cache = M.prefill(cfg, params, prompt.to(dev), capacity=24)
+        outs = [logits[:, -1:]]
+        for i in range(feed.shape[1]):
+            logits, cache = M.decode_step(cfg, params, cache,
+                                          feed[:, i:i + 1].to(dev))
+            outs.append(logits)
+        return torch.cat(outs, dim=1).cpu(), tree_map(lambda x: x.cpu(),
+                                                      cache)
+
+    for name in ("qwen3-0.6b", "qwen2.5-14b", "qwen2-moe-a2.7b"):
+        cfg = reduced(name)
+        params = conditioned(torch, M.init(cfg, torch.Generator().manual_seed(
+            SEED)), torch.Generator().manual_seed(SEED))
+        prompt = torch.randint(0, 128, (2, 16), dtype=torch.int32,
+                               generator=torch.Generator().manual_seed(3))
+        gen = serve.generate(cfg, params, prompt, 8, 24).tokens
+        want, want_c = fed(cfg, params, prompt, gen[:, :8], "cpu")
+        got, got_c = fed(cfg, params, prompt, gen[:, :8], "cuda")
+        gap = float((got - want).abs().max())
+        same = torch.allclose(got, want, rtol=1e-4, atol=1e-5) and all(
+            torch.allclose(a.float(), b.float(), rtol=1e-4, atol=1e-5)
+            for a, b in zip(tree_leaves(got_c), tree_leaves(want_c),
+                            strict=True))
+        log(f"  {cfg.name} prefill + 8 decode steps, card vs CPU: largest "
+            f"logit gap {gap:.3e} {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"{name}: decode on the card differs")
+
+    cfg = reduced("qwen3-0.6b")
+    init = conditioned(torch, M.init(cfg, torch.Generator().manual_seed(SEED)),
+                       torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(4)
+    batches = []
+    for _ in range(3):
+        tok = torch.randint(0, 128, (4, 32), dtype=torch.int32, generator=gen)
+        batches.append({"tokens": tok, "labels": torch.roll(tok, -1, 1)})
+    losses = []  # the card's, then the CPU's
+    for dev in ("cuda", "cpu"):
+        step = steps.make_train_step(cfg)
+        params = tree_map(lambda x: x.to(dev), init)
+        state = adamw(3e-4).init(params)
+        losses.append([])
+        for b in batches:
+            params, state, m = step(params, state,
+                                    {k: v.to(dev) for k, v in b.items()})
+            losses[-1].append(float(m["loss"]))
+    ok = all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(*losses))
+    log(f"  {cfg.name} 3 AdamW train steps, card vs CPU: losses "
+        f"{losses[0]} vs {losses[1]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("train steps on the card differ from the CPU")
+
+
+def launchers(torch, card: str) -> None:
+    """Phase 11, with its summary line for PERF.md."""
+    from repro_torch.kernels.fused_agg import fused_agg
+    from repro_torch.kernels.pair_fuse import pair_fuse
+    from repro_torch.kernels.quant_agg import quant_agg
+
+    pair_fuse.launches = fused_agg.launches = quant_agg.launches = 0
+    rows = [serve_full(torch, name, batch, card) for name, batch in SERVES]
+    prof = decode_profile(torch, card)
+    gap = decode_matches_forward(torch)
+    tr = train_full(torch)
+    free(torch)
+    launchers_card_vs_cpu(torch)
+    log(f"  kernel launches in phase 11: pair_fuse {pair_fuse.launches}, "
+        f"fused_agg {fused_agg.launches}, quant_agg {quant_agg.launches} "
+        f"(no TPU kernel lies on the serve or train path)")
+    log("  phase 11 summary: " + json.dumps(
+        {"card": card, "serve": rows, "decode_profile": prof,
+         "decode_vs_forward_gap": gap, "train": tr}))
+
+
 def main() -> int:
     import torch
 
@@ -1080,7 +1452,11 @@ def main() -> int:
     log(f"phase 10: the examples on the card ({smi})")
     examples(torch)
 
-    # 11. the record
+    # 11. the launchers
+    log(f"phase 11: the launchers on the card ({smi})")
+    launchers(torch, smi)
+
+    # 12. the record
     kernels = [
         {"name": "pair_fuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pair_fuse.cu",

@@ -63,8 +63,8 @@ def at_init(cfg) -> str:
         h = torch.nn.functional.embedding(batch["tokens"], params["embed"])
         pos = torch.arange(64, dtype=torch.int32, device="cuda")
         for i, (pattern, reps) in enumerate(cfg.stages()):
-            h, _ = tfm.stage_apply(cfg, pattern, reps, params[f"stage{i}"],
-                                   h, positions=pos)
+            h, _, _ = tfm.stage_apply(cfg, pattern, reps,
+                                      params[f"stage{i}"], h, positions=pos)
         rms = float(h.float().pow(2).mean().sqrt())
     return f"max |grad| {g:.4g}, residual RMS {rms:.4g}"
 

@@ -2,6 +2,10 @@
 the reference hands over, e.g. ``jax.tree.map(np.asarray, params)``) to the
 port's tensors on a device, and back, with the same keys, shapes and dtypes.
 
+Any tree crosses, not only parameters: optimizer state and KV caches carry
+int32 leaves (cache positions, a 0-d ``step`` or ``t``), which keep their
+dtype and shape, and ``None`` subtrees (SGD without momentum) stay.
+
 numpy has no bfloat16 of its own, so bf16 leaves cross as ``uint16`` bit
 views, the way the reference's checkpoints store them. An incoming array
 whose dtype is named ``bfloat16`` (ml_dtypes, as JAX gives it) is read

@@ -1,18 +1,20 @@
-"""Top-level model: embeddings -> staged decoder -> head, and the training
-loss. Everything is a function of (cfg, params, batch)."""
+"""Top-level model: embeddings -> staged decoder -> head; the training loss
+and the prefill / decode entry points. Everything is a function of (cfg,
+params, batch); the KV cache is written in place (``decode_step``)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch import Pytree, tree_map
+from repro_torch import Pytree, get_device, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import rms_norm, rms_norm_spec
-from repro_torch.models.spec import TensorSpec, count_params, init_params
+from repro_torch.models.spec import DTYPES, TensorSpec, count_params, init_params
 
 
 # --------------------------------------------------------------------------
@@ -43,6 +45,30 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Pytree]:
     return _apply_dtype(cfg, s)
 
 
+def cache_specs(cfg: ModelConfig, batch: int, capacity: int) -> Dict[str, Pytree]:
+    c: Dict[str, Pytree] = {
+        "t": TensorSpec((), (), init="zeros", dtype="int32"),
+    }
+    for i, (pattern, reps) in enumerate(cfg.stages()):
+        c[f"stage{i}"] = tfm.stage_cache_specs(cfg, pattern, reps, batch, capacity)
+    return _apply_dtype(cfg, c)
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int,
+               device: Union[str, torch.device, None] = None) -> Pytree:
+    """Zero-initialised cache on ``device``, its position slots marked
+    invalid (-1) and ``t`` a 0-d int32 0."""
+
+    def mk(specs, key=None):
+        if isinstance(specs, dict):
+            return {k: mk(v, k) for k, v in sorted(specs.items())}
+        return torch.full(specs.shape, -1 if key == "pos" else 0,
+                          dtype=DTYPES[specs.dtype], device=dev)
+
+    dev = get_device(device)
+    return mk(cache_specs(cfg, batch, capacity))
+
+
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
@@ -51,20 +77,35 @@ def forward(
     params: Pytree,
     tokens: torch.Tensor,
     *,
+    cache: Optional[Pytree] = None,
     training: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (fp32 logits, aux_loss)."""
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=tokens.device)
+) -> Tuple[torch.Tensor, Optional[Pytree], torch.Tensor]:
+    """Returns (fp32 logits, cache, aux_loss).
+
+    cache None  -> full-sequence training forward (cache None out).
+    cache given, S > 1 -> prefill (fills the cache's slots).
+    cache given, S == 1 -> single-token decode at position cache["t"].
+    A given cache is written in place and returned, ``t`` advanced by S.
+    """
+    seq = tokens.shape[1]
+    t = cache["t"] if cache is not None else None
+    if cache is not None and seq == 1:
+        positions = t.reshape(1).to(torch.int32)
+    else:
+        positions = torch.arange(seq, dtype=torch.int32, device=tokens.device)
     h = F.embedding(tokens, params["embed"])
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i, (pattern, reps) in enumerate(cfg.stages()):
-        h, aux = tfm.stage_apply(cfg, pattern, reps, params[f"stage{i}"], h,
-                                 positions=positions, training=training)
+        c_i = cache[f"stage{i}"] if cache is not None else None
+        h, _, aux = tfm.stage_apply(
+            cfg, pattern, reps, params[f"stage{i}"], h, positions=positions,
+            t=t, cache=c_i, training=training)
         aux_total = aux_total + aux
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = (h @ params["lm_head"]).to(torch.float32)
-    return logits, aux_total
+    if cache is not None:
+        cache["t"].add_(seq)
+    return logits, cache, aux_total
 
 
 # --------------------------------------------------------------------------
@@ -73,7 +114,7 @@ def forward(
 def loss_fn(
     cfg: ModelConfig, params: Pytree, batch: Dict[str, torch.Tensor]
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logits, aux = forward(cfg, params, batch["tokens"], training=True)
+    logits, _, aux = forward(cfg, params, batch["tokens"], training=True)
     labels = batch["labels"]
     # logsumexp minus the label logit; gathering the label logit reads the
     # same value the reference's one-hot contraction sums to, without a
@@ -83,6 +124,37 @@ def loss_fn(
     ce = torch.mean(logz - label_logit)
     loss = ce + cfg.router_aux_weight * aux
     return loss, {"ce": ce, "aux": aux, "loss": loss}
+
+
+@torch.no_grad()
+def prefill(
+    cfg: ModelConfig,
+    params: Pytree,
+    tokens: torch.Tensor,
+    *,
+    capacity: Optional[int] = None,
+) -> Tuple[torch.Tensor, Pytree]:
+    """capacity: total cache slots (>= prompt length) reserved for decode;
+    defaults to the prompt length (the dry-run decode-shape convention).
+    The cache lies on the tokens' device."""
+    b, s = tokens.shape[0], tokens.shape[1]
+    cache = init_cache(cfg, b, capacity or s, tokens.device)
+    logits, cache, _ = forward(cfg, params, tokens, cache=cache)
+    return logits, cache
+
+
+@torch.no_grad()
+def decode_step(
+    cfg: ModelConfig,
+    params: Pytree,
+    cache: Pytree,
+    tokens: torch.Tensor,  # (B, 1)
+) -> Tuple[torch.Tensor, Pytree]:
+    """One token per sequence at position cache["t"]. Consumes ``cache``:
+    its slot and ``t`` are updated in place and the same tree is returned
+    (the reference donates it), so pass a copy to keep the old one."""
+    logits, cache, _ = forward(cfg, params, tokens, cache=cache)
+    return logits, cache
 
 
 # --------------------------------------------------------------------------
@@ -95,3 +167,14 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> Pytree:
 
 def n_params(cfg: ModelConfig) -> int:
     return count_params(param_specs(cfg))
+
+
+def n_active_params(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: routed experts count k/E)."""
+    total = 0
+    for s in tree_leaves(param_specs(cfg)):
+        size = int(math.prod(s.shape))
+        if "experts" in (s.axes or ()) and cfg.num_experts:
+            size = size * cfg.num_experts_per_tok // cfg.num_experts
+        total += size
+    return total

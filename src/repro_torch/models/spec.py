@@ -14,7 +14,8 @@ import torch
 
 from repro_torch import Pytree, tree_leaves, tree_map
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "int32": torch.int32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +61,13 @@ def init_params(gen: torch.Generator, specs: Pytree) -> Pytree:
     """Materialise random parameters for a spec tree on the generator's
     device, drawing the leaves in tree order from one generator."""
     return tree_map(lambda s: _init_leaf(gen, s), specs)
+
+
+def abstract_params(specs: Pytree) -> Pytree:
+    """Tensors on the "meta" device for a spec tree: shapes and dtypes, no
+    storage (the reference's ShapeDtypeStructs)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=DTYPES[s.dtype],
+                                          device="meta"), specs)
 
 
 def count_params(specs: Pytree) -> int:

@@ -3,11 +3,16 @@ stacked layer parameters (the reference scans them), with optional remat.
 
 Block types (the ones this port carries so far)
   attn   : RMSNorm -> self-attn (full causal)      -> +res ; RMSNorm -> MLP -> +res
+  lattn  : same, sliding-window (cfg.sliding_window)
   moe    : RMSNorm -> self-attn -> +res ; RMSNorm -> MoE FFN -> +res  (+aux)
+
+A stage's KV cache is stacked like its parameters; layer r reads and writes
+slice r of it in place (a view), where the reference's scan re-stacks the
+whole cache every step.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -19,13 +24,19 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import mlp_apply, mlp_specs, rms_norm, rms_norm_spec
 from repro_torch.models.spec import stack_specs
 
+BLOCK_TYPES = ("attn", "lattn", "moe")
+
+
+def _check(btype: str) -> None:
+    if btype not in BLOCK_TYPES:
+        raise ValueError(f"block type {btype!r} is not ported")
+
 
 # --------------------------------------------------------------------------
 # per-block specs
 # --------------------------------------------------------------------------
 def block_param_specs(cfg: ModelConfig, btype: str) -> Dict[str, Pytree]:
-    if btype not in ("attn", "moe"):
-        raise ValueError(f"block type {btype!r} is not ported")
+    _check(btype)
     d = cfg.d_model
     return {
         "ln1": rms_norm_spec(d),
@@ -36,25 +47,44 @@ def block_param_specs(cfg: ModelConfig, btype: str) -> Dict[str, Pytree]:
     }
 
 
+def block_cache_specs(
+    cfg: ModelConfig, btype: str, batch: int, capacity: int
+) -> Dict[str, Pytree]:
+    _check(btype)
+    if btype == "lattn":
+        capacity = min(capacity, cfg.sliding_window or capacity)
+    return attn.attn_cache_specs(cfg, batch, capacity)
+
+
 # --------------------------------------------------------------------------
 # per-block application
 # --------------------------------------------------------------------------
-def block_apply(cfg: ModelConfig, btype: str, p: Dict[str, Pytree],
-                x: torch.Tensor, positions: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x, aux): aux is the MoE router's load-balance loss, 0 for
-    an attn block."""
-    if btype not in ("attn", "moe"):
-        raise ValueError(f"block type {btype!r} is not ported")
+def block_apply(
+    cfg: ModelConfig,
+    btype: str,
+    p: Dict[str, Pytree],
+    x: torch.Tensor,
+    *,
+    positions: torch.Tensor,
+    t: Optional[torch.Tensor] = None,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor]:
+    """Returns (x, cache, aux): the block's cache, written in place (None
+    without one), and the MoE router's load-balance loss, 0 for the other
+    blocks."""
+    _check(btype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn.self_attention(cfg, p["attn"], h, positions)
+    window = cfg.sliding_window if btype == "lattn" else None
+    y, new_cache = attn.self_attention(cfg, p["attn"], h, positions,
+                                       window=window, cache=cache, t=t)
+    x = x + y
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if btype == "moe":
         y, aux = moe_mod.moe_apply(cfg, p["ffn"], h)
     else:
         y = mlp_apply(p["ffn"], h)
-    return x + y, aux
+    return x + y, new_cache, aux
 
 
 # --------------------------------------------------------------------------
@@ -62,6 +92,15 @@ def block_apply(cfg: ModelConfig, btype: str, p: Dict[str, Pytree],
 # --------------------------------------------------------------------------
 def stage_param_specs(cfg: ModelConfig, pattern, reps: int) -> Pytree:
     one = {f"b{i}_{bt}": block_param_specs(cfg, bt) for i, bt in enumerate(pattern)}
+    return stack_specs(one, reps)
+
+
+def stage_cache_specs(cfg: ModelConfig, pattern, reps: int, batch: int,
+                      capacity: int) -> Pytree:
+    one = {
+        f"b{i}_{bt}": block_cache_specs(cfg, bt, batch, capacity)
+        for i, bt in enumerate(pattern)
+    }
     return stack_specs(one, reps)
 
 
@@ -73,25 +112,32 @@ def stage_apply(
     x: torch.Tensor,
     *,
     positions: torch.Tensor,
+    t: Optional[torch.Tensor] = None,
+    cache: Optional[Pytree] = None,
     training: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, Optional[Pytree], torch.Tensor]:
     """Apply the super-block ``reps`` times, layer r reading slice r of the
-    stacked parameters. Returns (x, the blocks' aux losses summed)."""
+    stacked parameters and of the stacked cache. Returns (x, cache, the
+    blocks' aux losses summed); the cache is ``cache``, written in place."""
 
-    def body(h, p_r):
+    def body(h, p_r, c_r):
         aux_r = torch.zeros((), dtype=torch.float32, device=h.device)
         for i, bt in enumerate(pattern):
-            h, aux = block_apply(cfg, bt, p_r[f"b{i}_{bt}"], h, positions)
+            key = f"b{i}_{bt}"
+            h, _, aux = block_apply(
+                cfg, bt, p_r[key], h, positions=positions, t=t,
+                cache=c_r[key] if c_r is not None else None)
             aux_r = aux_r + aux
         return h, aux_r
 
     remat = training and cfg.remat == "full" and torch.is_grad_enabled()
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(reps):
-        p_r = tree_map(lambda t: t[r], params)
+        p_r = tree_map(lambda a: a[r], params)
+        c_r = tree_map(lambda a: a[r], cache) if cache is not None else None
         if remat:
-            x, aux = checkpoint(body, x, p_r, use_reentrant=False)
+            x, aux = checkpoint(body, x, p_r, c_r, use_reentrant=False)
         else:
-            x, aux = body(x, p_r)
+            x, aux = body(x, p_r, c_r)
         aux_sum = aux_sum + aux
-    return x, aux_sum
+    return x, cache, aux_sum

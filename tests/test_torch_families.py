@@ -92,7 +92,7 @@ def test_logits_and_loss_match_reference(name, dtype):
     _, jp, tp = _params(jcfg)
     jb, tb = _batch()
     jl, _, jaux = JM.forward(jcfg, jp, jb["tokens"])
-    tl, aux = M.forward(cfg, tp, tb["tokens"])
+    tl, _, aux = M.forward(cfg, tp, tb["tokens"])
     jloss = float(JM.loss_fn(jcfg, jp, jb)[0])
     tloss = float(M.loss_fn(cfg, tp, tb)[0])
     if dtype == "float32":

@@ -129,7 +129,7 @@ def test_causal_attention_matches_reference(q_chunk):
 def test_logits_and_loss_match_reference(dtype):
     jcfg, cfg, jp, tp, _, jb, tb = _setup(dtype)
     jl, _, _ = JM.forward(jcfg, jp, jb["tokens"])
-    tl, aux = M.forward(cfg, tp, tb["tokens"])
+    tl, _, aux = M.forward(cfg, tp, tb["tokens"])
     assert tl.dtype == torch.float32 and tuple(tl.shape) == tuple(jl.shape)
     assert float(aux) == 0.0
     jloss = float(JM.loss_fn(jcfg, jp, jb)[0])
