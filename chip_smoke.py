@@ -62,7 +62,19 @@ with a non-zero exit; no phase catches its own error):
     steps; then the card against the CPU at reduced sizes from the same
     ``conditioned`` weights (prefill and 8 decode steps of the three
     configs, 3 train steps of qwen3-0.6b);
-12. one JSON line with every kernel's numbers, then the result line.
+12. the SSM, RG-LRU hybrid, audio and VLM families, each model freed
+    before the next: ``Platform().train`` of mamba2-130m (24 of 24
+    layers, from ``conditioned`` weights), recurrentgemma-9b (3 of 38) and
+    musicgen-large (6 of 48) at full width as in phase 9 (the VLM's parties have no image
+    inputs: the runtime refuses it, as the reference fails);
+    ``launch.serve`` of mamba2-130m (B 8), recurrentgemma-9b (B 4) and
+    musicgen-large (B 4) at full depth and of llama-3.2-vision-90b at 5 of
+    100 layers (B 4, zero image embeddings of 1,601 tokens), prompt 1024
+    and 128 greedy steps, checked as in phase 11; fp32 decode against the
+    full forward at full depth for mamba2-130m and recurrentgemma-9b; the
+    card against the CPU on the four reduced configs;
+    ``scripts/torch_smoke_models.py`` over every architecture on the card;
+13. one JSON line with every kernel's numbers, then the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -95,6 +107,17 @@ FAMILIES = (("qwen1.5-4b", 3), ("qwen2.5-14b", 3), ("qwen2-moe-a2.7b", 3))
 # length and the greedy decode steps; PERF.md gives the memory reckoning
 SERVES = (("qwen3-0.6b", 8), ("qwen2.5-14b", 4), ("qwen2-moe-a2.7b", 4))
 PROMPT, TOKENS = 1024, 128
+# phase 12: (config, layers kept, from conditioned weights) trained at full
+# width as in phase 9, and (config, layers kept, batch) served at full
+# width; PERF.md gives the memory reckoning. musicgen-large still learns at
+# 6 layers, not at 12 (scripts/torch_lr_sweep.py). From the seeded weights
+# mamba2-130m's gradient turns NaN within two rounds: the reference's SSD
+# pass overflows exp() in the masked triangle of a chunk (ROADMAP Queue 3),
+# which the port copies; ``conditioned`` draws its dt_bias as Mamba-2 does
+RECURRENT_TRAIN = (("mamba2-130m", 24, True), ("recurrentgemma-9b", 3, False),
+                   ("musicgen-large", 6, False))
+RECURRENT_SERVES = (("mamba2-130m", 24, 8), ("recurrentgemma-9b", 38, 4),
+                    ("musicgen-large", 48, 4), ("llama-3.2-vision-90b", 5, 4))
 CARD_BYTES = 80e9
 
 
@@ -439,12 +462,16 @@ def fold_against_probe(torch, res, trials: int = 3) -> None:
 
 def conditioned(torch, tree, gen):
     """``tree`` with the attention projections rescaled to a fan-in over
-    their input axes (d_model for wq, wk and wv; heads x head_dim for wo)
-    and the q/k/v biases drawn from N(0, 0.1^2) with ``gen`` (a CPU
-    generator; each bias takes its leaf's device and dtype). The
-    initialisation takes the fan-in from the heads axis, which without
-    qk_norm peaks the attention so sharply that training is chaotic (ROADMAP
-    Queue 3); these weights are not."""
+    their input axes (d_model for wq, wk and wv; heads x head_dim for wo),
+    the q/k/v biases drawn from N(0, 0.1^2) and the SSM's ``dt_bias`` drawn
+    as Mamba-2 initialises it (dt log-uniform in [1e-3, 0.1], the bias its
+    inverse softplus), with ``gen`` (a CPU generator; each drawn leaf takes
+    its leaf's device and dtype). The initialisation takes the fan-in from
+    the heads axis, which without qk_norm peaks the attention so sharply
+    that training is chaotic, and sets ``dt_bias`` to zeros, so that dt is
+    about 0.7 a position and the decay summed over a chunk of 64 comes
+    within a few units of exp's fp32 overflow at 88.7, past which the SSD
+    gradient is NaN (ROADMAP Queue 3); these weights are neither."""
     import math
 
     out = {}
@@ -458,6 +485,10 @@ def conditioned(torch, tree, gen):
         elif k in ("bq", "bk", "bv"):
             out[k] = (0.1 * torch.randn(v.shape, generator=gen)).to(
                 v.device, v.dtype)
+        elif k == "dt_bias":  # (layers, heads)
+            dt = torch.empty(v.shape).uniform_(
+                math.log(1e-3), math.log(1e-1), generator=gen).exp()
+            out[k] = (dt + torch.log(-torch.expm1(-dt))).to(v.device, v.dtype)
         else:
             out[k] = v
     return out
@@ -809,12 +840,14 @@ def free(torch) -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def family_path(torch, name: str, layers: int):
+def family_path(torch, name: str, layers: int, condition: bool = False):
     """``Platform().train`` of ``name`` at full width (bf16) with ``layers``
     of its layers: 3 parties, 2 FedAvg rounds on phase 4's data sizes, the
-    initial model drawn on the card from the seed. Every fold must go
+    initial model drawn on the card from the seed (and ``conditioned``
+    with ``condition``). Every fold must go
     through pair_fuse, the eval loss must drop and stay finite, and the
-    probe must predict one real fold."""
+    probe must predict one real fold. Returns (the run, its kernel
+    launches)."""
     from repro_torch import configs
     from repro_torch.api import Platform
     from repro_torch.core.jobspec import FLJobSpec, PartySpec
@@ -836,12 +869,18 @@ def family_path(torch, name: str, layers: int):
         f"bias={cfg.qkv_bias} experts={cfg.num_experts} "
         f"top-{cfg.num_experts_per_tok} shared={cfg.num_shared_experts} "
         f"{cfg.dtype}: {n_params:,} params ({n_params * 2 / 1e9:.3f} GB), "
-        f"{job.n_parties} parties, {job.rounds} rounds")
+        f"{job.n_parties} parties, {job.rounds} rounds"
+        f"{', conditioned weights' if condition else ''}")
     free(torch)
+    init = None
+    if condition:
+        init = conditioned(torch, M.init(cfg, torch.Generator(
+            device="cuda").manual_seed(SEED)), torch.Generator().manual_seed(
+            SEED))
     pair_fuse.launches = fused_agg.launches = 0
     t0 = time.perf_counter()
     res = Platform().train(cfg, job, n_sequences=48, eval_sequences=16,
-                           seed=SEED)
+                           seed=SEED, initial_params=init)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"pair_fuse": pair_fuse.launches,
@@ -849,7 +888,9 @@ def family_path(torch, name: str, layers: int):
     peak = torch.cuda.max_memory_allocated() / 2**30
     rt = res.runtime
     with torch.no_grad():  # the runtime's initial model, drawn again
-        init = M.init(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+        if init is None:
+            init = M.init(cfg, torch.Generator(
+                device="cuda").manual_seed(SEED))
         batch = {k: torch.from_numpy(v.astype("int64")).cuda()
                  for k, v in rt.eval_data.items() if k != "domains"}
         loss0 = float(M.loss_fn(cfg, init, batch)[0])
@@ -868,7 +909,7 @@ def family_path(torch, name: str, layers: int):
     fold_against_probe(torch, res)
     log(f"  peak device memory with the fold timed: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return res
+    return res, launches
 
 
 def moe_extras(torch, res) -> None:
@@ -1007,68 +1048,85 @@ def examples(torch) -> None:
 # --------------------------------------------------------------------------
 # phase 11: the launchers on the card
 # --------------------------------------------------------------------------
-def teacher_forced(torch, cfg, params, prompt, gen):
+def teacher_forced(torch, cfg, params, prompt, gen, image_embeds=None):
     """Logits of one full ``forward`` over the prompt and the generated
-    tokens, at the positions that predicted ``gen`` (B, n, V). A sequence
-    longer than one 256-query chunk is padded at its end to a whole number
-    of chunks (the reference's attention needs that): the forward is
-    causal, so the padding changes no earlier position."""
+    tokens, at the positions that predicted ``gen`` (B, n, [K,] V). A
+    sequence longer than one 256-query chunk is padded at its end to a
+    whole number of chunks (the reference's attention and its SSD chunks
+    of 256 need that): the forward is causal, so the padding changes no
+    earlier position."""
     from repro_torch.models import model as M
 
     seq = torch.cat([prompt, gen[:, :-1]], dim=1)
     n = seq.shape[1]
     pad = (-n) % 256 if n > 256 else 0
-    seq = torch.nn.functional.pad(seq, (0, pad))
+    seq = torch.nn.functional.pad(seq, (0, 0) * (seq.dim() - 2) + (0, pad))
     with torch.no_grad():
-        logits, _, _ = M.forward(cfg, params, seq)
+        logits, _, _ = M.forward(cfg, params, seq, image_embeds=image_embeds)
     s = prompt.shape[1]
     out = logits[:, s - 1:s - 1 + gen.shape[1]].clone()
     del logits
     return out
 
 
-def agreement(torch, cfg, params, prompt, out) -> tuple[float, float]:
+def agreement(torch, cfg, params, prompt, out, image_embeds=None
+              ) -> tuple[float, float]:
     """(share of ``out``'s greedy tokens that a teacher-forced forward over
     the same tokens also picks, largest gap between their logits)."""
-    tf = teacher_forced(torch, cfg, params, prompt, out.tokens)
+    tf = teacher_forced(torch, cfg, params, prompt, out.tokens, image_embeds)
     share = float((tf.argmax(-1) == out.tokens).float().mean())
     return share, float((tf - out.logits).abs().max())
 
 
-def serve_full(torch, name: str, batch: int, card: str) -> dict:
-    """``launch.serve.generate`` of ``name`` at full width and depth (bf16)
-    on the card: a prompt of PROMPT tokens prefilled into PROMPT + TOKENS
-    slots, then TOKENS greedy decode steps, each synchronised. The weights
-    and the prompt are drawn on the card from the seed. Fails unless every
-    token lies in the vocabulary, every logit is finite, the cache's ``t``
-    is PROMPT + TOKENS and peak memory stays under 80 GB.
+def serve_full(torch, name: str, batch: int, card: str,
+               layers: int | None = None) -> dict:
+    """``launch.serve.generate`` of ``name`` at full width (bf16) and full
+    depth, or ``layers`` of its layers, on the card: a prompt of PROMPT
+    tokens (PROMPT x K codebook tokens for an audio config) prefilled into
+    PROMPT + TOKENS slots, then TOKENS greedy decode steps, each
+    synchronised. A VLM gets zero image embeddings (B, P, d), as the
+    reference's serve launcher feeds. The weights and the prompt are drawn
+    on the card from the seed. Fails unless every token lies in the
+    vocabulary, every logit is finite, the cache's ``t`` is PROMPT + TOKENS
+    and peak memory stays under 80 GB. The decode bound reads every weight
+    and the whole cache (KV slots, recurrent states, conv tails, image
+    K/V) once a step.
 
     Then a teacher-forced forward over the same tokens: the share of greedy
     tokens it also picks, and the largest logit gap (reported). For a
-    config without qk_norm the seeded weights give no reading: their
-    forward is chaotic, a 1e-7 change of the weights moving the logits by
-    up to 4.7 (``scripts/torch_forward_chaos.py``), so the comparison is
-    repeated, untimed, from ``conditioned`` weights. The MoE's capacity
-    grows with the sequence (``models/moe.py``), so its prefill, its
-    one-token decode and the longer forward drop different tokens; the
-    conditioned comparison gives it a capacity factor at which no expert
-    drops a token."""
+    config with attention and without qk_norm the seeded weights give no
+    reading: their forward is chaotic, a 1e-7 change of the weights moving
+    the logits by up to 4.7 (``scripts/torch_forward_chaos.py``), so the
+    comparison is repeated, untimed, from ``conditioned`` weights. The
+    MoE's capacity grows with the sequence (``models/moe.py``), so its
+    prefill, its one-token decode and the longer forward drop different
+    tokens; the conditioned comparison gives it a capacity factor at which
+    no expert drops a token."""
     from repro_torch import configs, tree_leaves
     from repro_torch.kernels.autotune import HBM_BYTES_PER_S
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
     cfg = configs.get_config(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     free(torch)
     params = M.init(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    tok_shape = (batch, PROMPT) + ((cfg.num_codebooks,)
+                                   if cfg.num_codebooks else ())
     prompt = torch.randint(
-        0, cfg.vocab_size, (batch, PROMPT), device="cuda", dtype=torch.int32,
+        0, cfg.vocab_size, tok_shape, device="cuda", dtype=torch.int32,
         generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
-    serve.generate(cfg, params, prompt[:, :64], 4, 68)  # warm the libraries
+    img = None
+    if cfg.num_image_tokens:
+        img = torch.zeros((batch, cfg.num_image_tokens, cfg.d_model),
+                          dtype=torch.bfloat16, device="cuda")
+    serve.generate(cfg, params, prompt[:, :64], 4, 68,
+                   image_embeds=img)  # warm the libraries
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = serve.generate(cfg, params, prompt, TOKENS, PROMPT + TOKENS,
-                         timed=True, keep_logits=True)
+                         image_embeds=img, timed=True, keep_logits=True)
     peak = torch.cuda.max_memory_allocated()
     gen, t = out.tokens, int(out.cache["t"])
     in_vocab = bool(((gen >= 0) & (gen < cfg.vocab_size)).all())
@@ -1079,7 +1137,7 @@ def serve_full(torch, name: str, batch: int, card: str) -> dict:
     ms = statistics.median(steady) * 1e3
     bound = (p_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
     out.cache = None
-    agree, gap = agreement(torch, cfg, params, prompt, out)
+    agree, gap = agreement(torch, cfg, params, prompt, out, img)
     row = {"config": name, "layers": cfg.num_layers, "batch": batch,
            "prompt": PROMPT, "tokens": TOKENS,
            "prefill_ms": out.prefill_s * 1e3, "decode_ms": ms,
@@ -1098,21 +1156,22 @@ def serve_full(torch, name: str, batch: int, card: str) -> dict:
         f"{kv_bytes / 1e9:.3f} GB of cache at 3.35 TB/s); peak "
         f"{row['peak_gib']:.2f} GiB; t={t}; greedy tokens the teacher-forced"
         f" forward also picks {100 * agree:.2f} %, largest logit gap "
-        f"{gap:.4e}; first row {gen[0, :8].tolist()}")
+        f"{gap:.4e}; first row {gen[0].flatten()[:8].tolist()}")
     if not (out.finite and in_vocab and t == PROMPT + TOKENS
-            and gen.shape == (batch, TOKENS + 1) and peak < CARD_BYTES):
+            and tuple(gen.shape[:2]) == (batch, TOKENS + 1)
+            and peak < CARD_BYTES):
         raise AssertionError(f"serve {name}: finite={out.finite} "
                              f"in_vocab={in_vocab} t={t} shape="
                              f"{tuple(gen.shape)} peak={peak}")
-    if not cfg.qk_norm:
+    if cfg.num_heads and not cfg.qk_norm:
         params = conditioned(torch, params, torch.Generator().manual_seed(SEED))
         if cfg.num_experts:  # a capacity of S slots an expert drops nothing
             cfg = dataclasses.replace(
                 cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
         out = serve.generate(cfg, params, prompt, TOKENS, PROMPT + TOKENS,
-                             keep_logits=True)
+                             image_embeds=img, keep_logits=True)
         out.cache = None
-        agree, gap = agreement(torch, cfg, params, prompt, out)
+        agree, gap = agreement(torch, cfg, params, prompt, out, img)
         row["conditioned_greedy_agree"] = agree
         row["conditioned_max_logit_gap"] = gap
         log(f"  from conditioned weights: greedy tokens the teacher-forced "
@@ -1196,19 +1255,25 @@ def decode_profile(torch, card: str) -> dict:
     return row
 
 
-def decode_matches_forward(torch) -> float:
-    """qwen3-0.6b at full width and depth in fp32 (TF32 off): 32 greedy
+def decode_matches_forward(torch, name: str = "qwen3-0.6b") -> float:
+    """``name`` at full width and depth in fp32 (TF32 off): 32 greedy
     decode steps after a prompt of 256 against a teacher-forced forward over
     the same tokens, within the reference's ``test_decode_matches_full_
-    forward`` bound, rtol / atol 2e-2. Returns the largest gap."""
+    forward`` bound, rtol / atol 2e-2. A config with attention and without
+    qk_norm runs from ``conditioned`` weights: from the seeded ones its
+    forward is chaotic (``serve_full``), and the decode's other order of
+    fp32 sums would read as a gap. Returns the largest gap."""
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(configs.get_config("qwen3-0.6b"),
-                              dtype="float32")
+    cfg = dataclasses.replace(configs.get_config(name), dtype="float32")
     free(torch)
     params = M.init(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    weights = "seeded"
+    if cfg.num_heads and not cfg.qk_norm:
+        params = conditioned(torch, params, torch.Generator().manual_seed(SEED))
+        weights = "conditioned"
     prompt = torch.randint(
         0, cfg.vocab_size, (2, 256), device="cuda", dtype=torch.int32,
         generator=torch.Generator(device="cuda").manual_seed(SEED + 2))
@@ -1217,11 +1282,12 @@ def decode_matches_forward(torch) -> float:
     err = (out.logits - tf).abs()
     gap = float(err.max())
     ok = bool((err <= 2e-2 + 2e-2 * tf.abs()).all())
-    log(f"  decode == forward, {cfg.name} {cfg.num_layers} layers fp32, B 2,"
-        f" prompt 256, 32 tokens: largest logit gap {gap:.4e} (bound 2e-2 + "
-        f"2e-2 |logit|) {'ok' if ok else 'FAIL'}")
+    log(f"  decode == forward, {cfg.name} {cfg.num_layers} layers fp32 "
+        f"({weights} weights), B 2, prompt 256, 32 tokens: largest logit gap"
+        f" {gap:.4e} (bound 2e-2 + 2e-2 |logit|) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("decode does not match the full forward")
+        raise AssertionError(f"{name}: decode does not match the full "
+                             f"forward")
     del params, out, tf, err
     return gap
 
@@ -1266,15 +1332,63 @@ def train_full(torch) -> dict:
     return row
 
 
+def decode_card_vs_cpu(torch, cfg) -> float:
+    """Prefill of 16 tokens (with 16 image tokens for a VLM) and 8 decode
+    steps fed the CPU's greedy tokens, of ``cfg`` (a small fp32 config), on
+    the card and on the CPU from the same ``conditioned`` weights: logits
+    and caches within rtol 1e-4 / atol 1e-5. Returns the largest logit
+    gap."""
+    from repro_torch import tree_leaves, tree_map
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    gen = torch.Generator().manual_seed(3)
+    params = conditioned(torch, M.init(cfg, torch.Generator().manual_seed(
+        SEED)), torch.Generator().manual_seed(SEED))
+    prompt = torch.randint(0, cfg.vocab_size, (2, 16) + (
+        (cfg.num_codebooks,) if cfg.num_codebooks else ()),
+        dtype=torch.int32, generator=gen)
+    img = None
+    if cfg.num_image_tokens:
+        img = torch.randn((2, cfg.num_image_tokens, cfg.d_model),
+                          generator=gen)
+    feed = serve.generate(cfg, params, prompt, 8, 24,
+                          image_embeds=img).tokens[:, :8]
+
+    def fed(dev):
+        p = tree_map(lambda x: x.to(dev), params)
+        logits, cache = M.prefill(cfg, p, prompt.to(dev), capacity=24,
+                                  image_embeds=None if img is None
+                                  else img.to(dev))
+        outs = [logits[:, -1:]]
+        for i in range(feed.shape[1]):
+            logits, cache = M.decode_step(cfg, p, cache,
+                                          feed[:, i:i + 1].to(dev))
+            outs.append(logits)
+        return torch.cat(outs, dim=1).cpu(), tree_map(lambda x: x.cpu(),
+                                                      cache)
+
+    want, want_c = fed("cpu")
+    got, got_c = fed("cuda")
+    gap = float((got - want).abs().max())
+    same = torch.allclose(got, want, rtol=1e-4, atol=1e-5) and all(
+        torch.allclose(a.float(), b.float(), rtol=1e-4, atol=1e-5)
+        for a, b in zip(tree_leaves(got_c), tree_leaves(want_c), strict=True))
+    log(f"  {cfg.name} ({cfg.num_layers} layers) prefill + 8 decode steps, "
+        f"card vs CPU: largest logit gap {gap:.3e} {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{cfg.name}: decode on the card differs")
+    return gap
+
+
 def launchers_card_vs_cpu(torch) -> None:
     """The card against the CPU at reduced sizes (2 layers, d_model 64,
-    vocab 128, fp32) from the same ``conditioned`` weights: prefill of 16
-    tokens and 8 decode steps fed the CPU's greedy tokens, for qwen3-0.6b,
-    qwen2.5-14b and qwen2-moe-a2.7b, logits and caches within rtol 1e-4 /
-    atol 1e-5; and 3 ``make_train_step`` steps (AdamW) of qwen3-0.6b, losses
-    within rtol 1e-4."""
-    from repro_torch import configs, tree_leaves, tree_map
-    from repro_torch.launch import serve, steps
+    vocab 128, fp32) from the same ``conditioned`` weights: ``decode_card_
+    vs_cpu`` for qwen3-0.6b, qwen2.5-14b and qwen2-moe-a2.7b; and 3
+    ``make_train_step`` steps (AdamW) of qwen3-0.6b, losses within rtol
+    1e-4."""
+    from repro_torch import configs, tree_map
+    from repro_torch.launch import steps
     from repro_torch.models import model as M
     from repro_torch.optim import adamw
 
@@ -1282,35 +1396,8 @@ def launchers_card_vs_cpu(torch) -> None:
         return configs.get_config(name).reduced(
             num_layers=2, d_model=64, vocab_size=128, dtype="float32")
 
-    def fed(cfg, params, prompt, feed, dev):
-        params = tree_map(lambda x: x.to(dev), params)
-        logits, cache = M.prefill(cfg, params, prompt.to(dev), capacity=24)
-        outs = [logits[:, -1:]]
-        for i in range(feed.shape[1]):
-            logits, cache = M.decode_step(cfg, params, cache,
-                                          feed[:, i:i + 1].to(dev))
-            outs.append(logits)
-        return torch.cat(outs, dim=1).cpu(), tree_map(lambda x: x.cpu(),
-                                                      cache)
-
     for name in ("qwen3-0.6b", "qwen2.5-14b", "qwen2-moe-a2.7b"):
-        cfg = reduced(name)
-        params = conditioned(torch, M.init(cfg, torch.Generator().manual_seed(
-            SEED)), torch.Generator().manual_seed(SEED))
-        prompt = torch.randint(0, 128, (2, 16), dtype=torch.int32,
-                               generator=torch.Generator().manual_seed(3))
-        gen = serve.generate(cfg, params, prompt, 8, 24).tokens
-        want, want_c = fed(cfg, params, prompt, gen[:, :8], "cpu")
-        got, got_c = fed(cfg, params, prompt, gen[:, :8], "cuda")
-        gap = float((got - want).abs().max())
-        same = torch.allclose(got, want, rtol=1e-4, atol=1e-5) and all(
-            torch.allclose(a.float(), b.float(), rtol=1e-4, atol=1e-5)
-            for a, b in zip(tree_leaves(got_c), tree_leaves(want_c),
-                            strict=True))
-        log(f"  {cfg.name} prefill + 8 decode steps, card vs CPU: largest "
-            f"logit gap {gap:.3e} {'ok' if same else 'FAIL'}")
-        if not same:
-            raise AssertionError(f"{name}: decode on the card differs")
+        decode_card_vs_cpu(torch, reduced(name))
 
     cfg = reduced("qwen3-0.6b")
     init = conditioned(torch, M.init(cfg, torch.Generator().manual_seed(SEED)),
@@ -1356,6 +1443,63 @@ def launchers(torch, card: str) -> None:
     log("  phase 11 summary: " + json.dumps(
         {"card": card, "serve": rows, "decode_profile": prof,
          "decode_vs_forward_gap": gap, "train": tr}))
+
+
+# --------------------------------------------------------------------------
+# phase 12: the SSM, RG-LRU hybrid, audio and VLM families
+# --------------------------------------------------------------------------
+def smoke_models_on_card() -> None:
+    """``scripts/torch_smoke_models.py`` on the card: every architecture's
+    reduced variant through forward, loss and gradient, prefill and one
+    decode step (it raises if a number is not finite)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / "torch_smoke_models.py"
+    spec = importlib.util.spec_from_file_location("torch_smoke_models", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.main(["--device", "cuda"])
+
+
+def recurrent_families(torch, card: str) -> None:
+    """Phase 12, with its summary line for PERF.md."""
+    from repro_torch import configs
+    from repro_torch.kernels.fused_agg import fused_agg
+    from repro_torch.kernels.pair_fuse import pair_fuse
+    from repro_torch.kernels.quant_agg import quant_agg
+
+    trained = []
+    for name, layers, condition in RECURRENT_TRAIN:
+        res, launches = family_path(torch, name, layers, condition)
+        trained.append({
+            "config": name, "layers": layers, "conditioned": condition,
+            "pair_fuse_launches": launches["pair_fuse"],
+            "eval_losses": [r.global_loss for r in res.records],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+        del res
+
+    pair_fuse.launches = fused_agg.launches = quant_agg.launches = 0
+    rows = [serve_full(torch, name, batch, card, layers)
+            for name, layers, batch in RECURRENT_SERVES]
+    gaps = {name: decode_matches_forward(torch, name)
+            for name in ("mamba2-130m", "recurrentgemma-9b")}
+    free(torch)
+    small = {"mamba2-130m": dict(num_layers=2, ssm_head_dim=32),
+             "recurrentgemma-9b": dict(num_layers=5),
+             "musicgen-large": dict(num_layers=2),
+             "llama-3.2-vision-90b": dict(num_layers=5)}
+    for name, over in small.items():
+        decode_card_vs_cpu(torch, configs.get_config(name).reduced(
+            d_model=64, vocab_size=128, dtype="float32", **over))
+    smoke_models_on_card()
+    serve_launches = {"pair_fuse": pair_fuse.launches,
+                      "fused_agg": fused_agg.launches,
+                      "quant_agg": quant_agg.launches}
+    log(f"  kernel launches in phase 12 after the training runs: "
+        f"{serve_launches} (no TPU kernel lies on the serve path)")
+    log("  phase 12 summary: " + json.dumps(
+        {"card": card, "train": trained, "serve": rows,
+         "decode_vs_forward_gap": gaps, "serve_launches": serve_launches}))
 
 
 def main() -> int:
@@ -1439,7 +1583,7 @@ def main() -> int:
     # 9. the other families at full width
     log(f"phase 9: the other families at full width ({smi})")
     for name, layers in FAMILIES:
-        res = family_path(torch, name, layers)
+        res, _ = family_path(torch, name, layers)
         if res.runtime.cfg.num_experts:
             moe_extras(torch, res)
         del res
@@ -1456,7 +1600,11 @@ def main() -> int:
     log(f"phase 11: the launchers on the card ({smi})")
     launchers(torch, smi)
 
-    # 12. the record
+    # 12. the SSM, RG-LRU hybrid, audio and VLM families
+    log(f"phase 12: the SSM, hybrid, audio and VLM families ({smi})")
+    recurrent_families(torch, smi)
+
+    # 13. the record
     kernels = [
         {"name": "pair_fuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pair_fuse.cu",

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Which depths and local learning rates the port's full-width q/k/v-bias
-and MoE families train at on the card, through the main path.
+"""Which depths and local learning rates the port's full-width families
+train at on the card, through the main path.
 
     python3 scripts/torch_lr_sweep.py    # from the repository root, on a card
+    python3 scripts/torch_lr_sweep.py musicgen-large --lr 0.05  # a subset
 
 For each configuration, at full width and bf16, and each depth: the
 gradient's largest magnitude and the residual stream's RMS at the seeded
@@ -20,6 +21,7 @@ returns zeros and the eval loss reads exactly ln(V).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import sys
@@ -38,7 +40,8 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 
 DEPTHS = {"qwen1.5-4b": (2, 3, 4, 8, 20), "qwen2.5-14b": (2, 3),
-          "qwen2-moe-a2.7b": (2, 3)}
+          "qwen2-moe-a2.7b": (2, 3), "mamba2-130m": (24,),
+          "recurrentgemma-9b": (3,), "musicgen-large": (3, 6, 12, 24)}
 LRS = (0.05, 0.01, 0.001)
 
 
@@ -52,7 +55,8 @@ def at_init(cfg) -> str:
     model, on 16 random sequences."""
     params = M.init(cfg, torch.Generator(device="cuda").manual_seed(0))
     rng = np.random.default_rng(0)
-    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (16, 64)))
+    shape = (16, 64) + ((cfg.num_codebooks,) if cfg.num_codebooks else ())
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, shape))
              .cuda() for k in ("tokens", "labels")}
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     loss = M.loss_fn(cfg, tree_unflatten(params, leaves), batch)[0]
@@ -60,7 +64,7 @@ def at_init(cfg) -> str:
     g = max(float(x.float().abs().max()) for x in grads)
     del grads, leaves
     with torch.no_grad():
-        h = torch.nn.functional.embedding(batch["tokens"], params["embed"])
+        h = M._embed(cfg, params, batch["tokens"])
         pos = torch.arange(64, dtype=torch.int32, device="cuda")
         for i, (pattern, reps) in enumerate(cfg.stages()):
             h, _, _ = tfm.stage_apply(cfg, pattern, reps,
@@ -85,19 +89,24 @@ def trained(cfg, lr: float) -> str:
     return " -> ".join(f"{x:.6f}" for x in losses)
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("names", nargs="*", help="configs (default: all)")
+    ap.add_argument("--lr", type=float, action="append",
+                    help="local learning rates (default: 0.05 0.01 0.001)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("torch_lr_sweep: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(torch.cuda.get_device_name(0), flush=True)
-    for name, depths in DEPTHS.items():
-        for layers in depths:
+    for name in args.names or DEPTHS:
+        for layers in DEPTHS[name]:
             cfg = dataclasses.replace(configs.get_config(name),
                                       num_layers=layers)
             print(f"{name}, {layers} layers, ln(V) "
                   f"{np.log(cfg.vocab_size):.6f}: {at_init(cfg)}", flush=True)
             free()
-            for lr in LRS:
+            for lr in args.lr or LRS:
                 print(f"  lr {lr}: eval loss {trained(cfg, lr)}", flush=True)
                 free()
 

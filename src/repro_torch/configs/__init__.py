@@ -1,5 +1,4 @@
-"""Architecture registry (the port carries the configurations its slices
-run). ``load_all()`` imports every per-arch module."""
+"""Architecture registry. ``load_all()`` imports every per-arch module."""
 from __future__ import annotations
 
 import importlib
@@ -14,8 +13,12 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 ARCH_MODULES = [
+    "recurrentgemma_9b",
     "qwen1_5_4b",
     "qwen3_0_6b",
+    "llama_3_2_vision_90b",
+    "mamba2_130m",
+    "musicgen_large",
     "minitron_8b",
     "llama4_scout_17b_a16e",
     "qwen2_5_14b",
@@ -35,11 +38,13 @@ def load_all() -> None:
     _loaded = True
 
 
-# the reference's ARCH_IDS, in its order, keeping the architectures the port
-# carries (example-100m is not listed there either)
 ARCH_IDS = [
+    "recurrentgemma-9b",
     "qwen1.5-4b",
     "qwen3-0.6b",
+    "llama-3.2-vision-90b",
+    "mamba2-130m",
+    "musicgen-large",
     "minitron-8b",
     "llama4-scout-17b-a16e",
     "qwen2.5-14b",

@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 import statistics
 import time
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,7 +32,7 @@ from repro_torch.data.partition import dirichlet_domain_mixes, party_sizes
 from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
 from repro_torch.fl.aggregator import AggregationExecutor
 from repro_torch.fl.party import Party
-from repro_torch.kernels.pair_fuse import pair_fuse
+from repro_torch.kernels.ops import accumulate
 from repro_torch.models import model as M
 
 CPU_PROBE_CAP = 4 << 20  # bytes; the CPU probes a slice and scales up
@@ -51,34 +51,38 @@ class RoundRecord:
     global_loss: float
 
 
-def probe_t_pair(n_elements: int, update_dtype: torch.dtype,
+def probe_t_pair(leaf_sizes: Sequence[int], update_dtype: torch.dtype,
                  device: torch.device, trials: int = 3) -> float:
-    """Offline t_pair measurement (§5.4): median time of one ``pair_fuse``
-    wsum that folds an update of ``n_elements`` in ``update_dtype`` into
-    an fp32 accumulator of the same length, already on ``device``, after a
-    warmup, with the device synchronised inside each timed call. That is
-    the aggregator's fold of one whole model (``kernels.ops.accumulate``):
-    the runtime passes the global model's element count and its leaves'
-    dtype. On the card the probe is the full model; the CPU probes at most
-    ``CPU_PROBE_CAP`` bytes of accumulator and scales linearly (fusion is
-    linear in bytes)."""
-    n = n_elements if device.type == "cuda" else min(n_elements,
-                                                     CPU_PROBE_CAP // 4)
-    n = max(n, 1)
+    """Offline t_pair measurement (§5.4): median time of one fold of an
+    update in ``update_dtype``, with leaves of ``leaf_sizes`` elements, into
+    an fp32 accumulator of the same leaves, already on ``device``, after a
+    warmup, with the device synchronised inside each timed call. The fold
+    is the aggregator's own (``kernels.ops.accumulate``: one ``pair_fuse``
+    wsum a leaf), and the runtime passes the global model's leaf sizes and
+    dtype, so the probe pays what a real fold pays for each leaf as well as
+    for each byte: on the card a small model's fold is bound by its
+    launches. On the card the probe is the full model; the CPU probes at
+    most ``CPU_PROBE_CAP`` bytes of accumulator, every leaf cut by the same
+    factor, and scales the time by the elements left out (fusion is linear
+    in bytes)."""
+    total = max(sum(leaf_sizes), 1)
+    cap = total if device.type == "cuda" else CPU_PROBE_CAP // 4
+    sizes = [max(1, n * min(cap, total) // total) for n in leaf_sizes]
     gen = torch.Generator(device=device).manual_seed(0)
-    acc = torch.randn(n, generator=gen, device=device)
-    upd = torch.randn(n, generator=gen, device=device).to(update_dtype)
+    acc = [torch.randn(n, generator=gen, device=device) for n in sizes]
+    upd = [torch.randn(n, generator=gen, device=device).to(update_dtype)
+           for n in sizes]
 
     def timed() -> float:
         t0 = time.perf_counter()
-        pair_fuse(acc, upd, op="wsum", wa=1.0, wb=1.0)
+        accumulate(acc, upd, 1.0)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return time.perf_counter() - t0
 
     timed()  # warmup
     t_pair = statistics.median(timed() for _ in range(max(trials, 3)))
-    return t_pair * max(n_elements, 1) / n
+    return t_pair * total / sum(sizes)
 
 
 class FLJobRuntime:
@@ -100,7 +104,17 @@ class FLJobRuntime:
     ):
         """``initial_params``: the global model to start from (a tree of
         tensors, e.g. the reference's weights through ``interop.to_torch``);
-        by default it is drawn from a ``torch.Generator`` seeded ``seed``."""
+        by default it is drawn from a ``torch.Generator`` seeded ``seed``.
+
+        A config with image tokens (the xattn family) is refused: the
+        parties' synthetic data holds text tokens only, and its
+        cross-attention blocks read ``image_embeds``. The reference fails
+        there too, at its first local step."""
+        if cfg.num_image_tokens:
+            raise ValueError(
+                f"{cfg.name}: federated training of a config with image "
+                f"tokens is not supported: the parties' batches carry no "
+                f"image_embeds for its cross-attention blocks")
         self.cfg = cfg
         self.spec = spec
         self.device = get_device(device)
@@ -150,7 +164,7 @@ class FLJobRuntime:
         if estimator is None:  # every leaf has the config's dtype
             leaves = tree_leaves(self.global_params)
             estimator = AggregationEstimator(probe_t_pair(
-                sum(t.numel() for t in leaves), leaves[0].dtype, self.device))
+                [t.numel() for t in leaves], leaves[0].dtype, self.device))
         self.estimator = estimator
         self.t_pair0 = self.estimator.t_pair_s  # pre-calibration t_pair
         self.cluster_cfg = cluster_config or ClusterConfig()

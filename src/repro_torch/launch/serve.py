@@ -23,23 +23,30 @@ import torch
 
 from repro_torch import configs, get_device
 from repro_torch.models import model as M
+from repro_torch.models.spec import DTYPES
 
 
 @dataclasses.dataclass
 class Generation:
-    tokens: torch.Tensor  # (B, steps + 1) int32: the prefill's, then each step's
+    # (B, steps + 1) int32, (B, steps + 1, K) with K codebooks: the
+    # prefill's greedy token, then each step's
+    tokens: torch.Tensor
     cache: dict
     finite: bool  # every logit of the prefill and of every step
     prefill_s: float
     step_s: List[float]  # each decode step (synchronised when timed)
-    logits: Optional[torch.Tensor] = None  # (B, steps + 1, V) last-position
+    # (B, steps + 1, [K,] V) last-position
+    logits: Optional[torch.Tensor] = None
 
 
 def generate(cfg, params, prompt, steps: int, capacity: int, *,
+             image_embeds: Optional[torch.Tensor] = None,
              timed: bool = False, keep_logits: bool = False) -> Generation:
-    """Prefill ``prompt`` (B, S) into a cache of ``capacity`` slots, take its
-    greedy token, then ``steps`` greedy decode steps. ``timed`` waits for
-    the card after the prefill and after each step, so the times are the
+    """Prefill ``prompt`` (B, S), or (B, S, K) with K codebooks, into a
+    cache of ``capacity`` slots, take its greedy token, then ``steps``
+    greedy decode steps. ``image_embeds`` (B, P, d) go to the prefill, which
+    caches their cross-attention K/V for the steps. ``timed`` waits for the
+    card after the prefill and after each step, so the times are the
     device's (host clock); otherwise they time the host's enqueue.
     ``keep_logits`` keeps every prediction's fp32 logits on the device."""
 
@@ -49,7 +56,8 @@ def generate(cfg, params, prompt, steps: int, capacity: int, *,
 
     sync()
     t0 = time.perf_counter()
-    logits, cache = M.prefill(cfg, params, prompt, capacity=capacity)
+    logits, cache = M.prefill(cfg, params, prompt, capacity=capacity,
+                              image_embeds=image_embeds)
     finite = torch.isfinite(logits).all()
     last = logits[:, -1:]
     del logits
@@ -100,19 +108,25 @@ def main(argv=None):
 
     params = M.init(cfg, torch.Generator(device=dev).manual_seed(0))
     b, s = args.batch, args.prompt_len
-    prompt = torch.randint(0, cfg.vocab_size, (b, s),
+    tok_shape = (b, s, cfg.num_codebooks) if cfg.num_codebooks else (b, s)
+    prompt = torch.randint(0, cfg.vocab_size, tok_shape,
                            generator=torch.Generator(device=dev).manual_seed(1),
                            device=dev, dtype=torch.int32)
-    out = generate(cfg, params, prompt, args.tokens - 1, s + args.tokens)
-    print(f"prefill: {(b, s, cfg.vocab_size)} in {out.prefill_s:.2f}s",
-          flush=True)
+    image_embeds = None
+    if cfg.num_image_tokens:
+        image_embeds = torch.zeros((b, cfg.num_image_tokens, cfg.d_model),
+                                   dtype=DTYPES[cfg.dtype], device=dev)
+    out = generate(cfg, params, prompt, args.tokens - 1, s + args.tokens,
+                   image_embeds=image_embeds)
+    print(f"prefill: {tuple(tok_shape) + (cfg.vocab_size,)} in "
+          f"{out.prefill_s:.2f}s", flush=True)
     for i, dt in enumerate(out.step_s[:2]):
         print(f"decode {i}: {dt:.2f}s", flush=True)
     gen = out.tokens
     if not (bool((gen >= 0).all()) and bool((gen < cfg.vocab_size).all())):
         raise AssertionError("a generated token is outside the vocabulary")
     print(f"generated {tuple(gen.shape)} tokens; first row: "
-          f"{[int(x) for x in gen[0, :8]]}")
+          f"{[int(x) for x in gen[0].flatten()[:8]]}")
     print("ok")
     return 0
 

@@ -42,11 +42,11 @@ def make_train_step(cfg: ModelConfig, optimizer=None) -> Callable:
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     if cfg.num_image_tokens:
-        raise ValueError("image tokens (the xattn family) are not ported")
-
-    def step(params, tokens):
-        return M.prefill(cfg, params, tokens)
-
+        def step(params, tokens, image_embeds):
+            return M.prefill(cfg, params, tokens, image_embeds=image_embeds)
+    else:
+        def step(params, tokens):
+            return M.prefill(cfg, params, tokens)
     return step
 
 
@@ -108,13 +108,20 @@ def build(cfg: ModelConfig, shape: InputShape):
         return make_train_step(cfg), args, (0, 1)
 
     if shape.kind == "prefill":
-        tokens = abstract_params(batch_specs(cfg, shape)["tokens"])
-        return make_prefill_step(cfg), (p_abs, tokens), ()
+        bspecs = batch_specs(cfg, shape)
+        args = [p_abs, abstract_params(bspecs["tokens"])]
+        if cfg.num_image_tokens:
+            args.append(abstract_params(bspecs["image_embeds"]))
+        return make_prefill_step(cfg), tuple(args), ()
 
     # decode
     cap = decode_capacity(cfg, shape)
     cspecs = M.cache_specs(cfg, shape.global_batch, cap)
-    tok_spec = TensorSpec((shape.global_batch, 1), ("batch", None),
-                          dtype="int32")
+    if cfg.num_codebooks:
+        tok_spec = TensorSpec((shape.global_batch, 1, cfg.num_codebooks),
+                              ("batch", None, None), dtype="int32")
+    else:
+        tok_spec = TensorSpec((shape.global_batch, 1), ("batch", None),
+                              dtype="int32")
     args = (p_abs, abstract_params(cspecs), abstract_params(tok_spec))
     return make_decode_step(cfg), args, (1,)

@@ -23,6 +23,7 @@ from repro_torch import configs, get_device
 from repro_torch.configs.base import InputShape
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import model as M
+from repro_torch.models.spec import DTYPES
 from repro_torch.optim import adamw
 
 
@@ -61,11 +62,17 @@ def main(argv=None):
     params = M.init(cfg, torch.Generator(device=dev).manual_seed(0))
     opt_state = adamw(3e-4).init(params)
     gen = torch.Generator(device=dev).manual_seed(1)
+    tok_shape = (shape.global_batch, shape.seq_len)
+    if cfg.num_codebooks:
+        tok_shape += (cfg.num_codebooks,)
     for i in range(args.steps):
-        tokens = torch.randint(0, cfg.vocab_size,
-                               (shape.global_batch, shape.seq_len),
-                               generator=gen, device=dev, dtype=torch.int32)
+        tokens = torch.randint(0, cfg.vocab_size, tok_shape, generator=gen,
+                               device=dev, dtype=torch.int32)
         batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+        if cfg.num_image_tokens:
+            batch["image_embeds"] = torch.zeros(
+                (shape.global_batch, cfg.num_image_tokens, cfg.d_model),
+                dtype=DTYPES[cfg.dtype], device=dev)
         t0 = time.time()
         params, opt_state, metrics = step(params, opt_state, batch)
         loss = float(metrics["loss"])  # waits for the step

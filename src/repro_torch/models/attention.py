@@ -1,4 +1,5 @@
-"""GQA causal self-attention (full or sliding-window) with a KV cache.
+"""GQA attention: causal self-attention (full or sliding-window) with a
+KV cache, and cross-attention over a fixed set of image tokens.
 
 Full-sequence attention is computed over query chunks so the (Sq, Sk) score
 matrix is never fully materialised — peak transient is
@@ -161,6 +162,36 @@ def self_attention(
     return y, cache
 
 
+def cross_attention(
+    cfg: ModelConfig,
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,  # (B, S, d) text stream
+    kv_embeds: Optional[torch.Tensor],  # (B, P, d) image/frame embeddings
+    cache: Optional[Cache] = None,
+) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Cross attention over a fixed modality-token set (no causal mask).
+
+    With ``kv_embeds``, K/V are projected from them (and, given a cache,
+    written into it: the prefill); without, they are read from the cache
+    (the decode step, O(P))."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    if cache is not None and kv_embeds is None:
+        k, v = cache["k"], cache["v"]
+    else:
+        k = torch.einsum("bpd,dhk->bphk", kv_embeds, p["wk"])
+        v = torch.einsum("bpd,dhk->bphk", kv_embeds, p["wv"])
+        if cfg.qk_norm:
+            k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        if cache is not None:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    mask = torch.ones((1, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = _grouped_attn(q, k, v, mask)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+
+
 def attn_cache_specs(
     cfg: ModelConfig, batch: int, capacity: int
 ) -> Dict[str, TensorSpec]:
@@ -169,4 +200,13 @@ def attn_cache_specs(
         "k": TensorSpec((batch, capacity, kv, hd), ("batch", "cache_seq", "kv_heads", None)),
         "v": TensorSpec((batch, capacity, kv, hd), ("batch", "cache_seq", "kv_heads", None)),
         "pos": TensorSpec((capacity,), ("cache_seq",), init="zeros", dtype="int32"),
+    }
+
+
+def xattn_cache_specs(cfg: ModelConfig, batch: int) -> Dict[str, TensorSpec]:
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    p = cfg.num_image_tokens
+    return {
+        "k": TensorSpec((batch, p, kv, hd), ("batch", None, "kv_heads", None)),
+        "v": TensorSpec((batch, p, kv, hd), ("batch", None, "kv_heads", None)),
     }

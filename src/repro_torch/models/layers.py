@@ -1,7 +1,7 @@
-"""Common layers: RMSNorm, RoPE, SwiGLU MLP."""
+"""Common layers: RMSNorm, RoPE, SwiGLU MLP, conv1d."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -61,3 +61,33 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     u = x @ p["w_up"]
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
     return h @ p["w_down"]
+
+
+# --------------------------------------------------------------------------
+# temporal conv1d (causal, per-channel), used by SSM and RG-LRU blocks
+# --------------------------------------------------------------------------
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, C); w: (K, C) depthwise causal conv along S.
+
+    The K taps are summed one by one in fp32, in tap order, as the
+    reference does; ``F.conv1d(groups=C)`` sums in another order, and the
+    cast to x's dtype can then round differently."""
+    k, s = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(k):
+        out = out + pad[:, i:i + s, :].to(torch.float32) * w[i].to(
+            torch.float32)
+    return out.to(x.dtype)
+
+
+def conv1d_step(x_t: torch.Tensor, conv_cache: torch.Tensor, w: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step. x_t: (B, C); conv_cache: (B, K-1, C) past inputs.
+    Returns (output, the new K-1 past inputs); the taps are summed as in
+    ``causal_conv1d``."""
+    window = torch.cat([conv_cache, x_t[:, None, :]], dim=1)  # (B, K, C)
+    out = torch.zeros(x_t.shape, dtype=torch.float32, device=x_t.device)
+    for i in range(w.shape[0]):
+        out = out + window[:, i].to(torch.float32) * w[i].to(torch.float32)
+    return out.to(x_t.dtype), window[:, 1:, :]

@@ -24,7 +24,7 @@ class TensorSpec:
 
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]  # logical axis name per dim (None = replicated)
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | rglru_lambda
     scale: float = 1.0  # stddev multiplier for "normal"
     dtype: str = "bfloat16"
 
@@ -48,6 +48,11 @@ def _init_leaf(gen: torch.Generator, s: TensorSpec) -> torch.Tensor:
         return torch.zeros(s.shape, dtype=dt, device=gen.device)
     if s.init == "ones":
         return torch.ones(s.shape, dtype=dt, device=gen.device)
+    if s.init == "rglru_lambda":
+        # Griffin: a in [0.9, 0.999] -> Lambda = softplus^{-1}((-log a)/c), c=8.
+        u = torch.rand(s.shape, generator=gen, dtype=torch.float32,
+                       device=gen.device) * (0.999 - 0.9) + 0.9
+        return torch.log(torch.expm1(-torch.log(u) / 8.0)).to(dt)
     if s.init != "normal":
         raise ValueError(f"unknown init {s.init!r}")
     fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]

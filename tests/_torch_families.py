@@ -1,5 +1,6 @@
-"""Shared by the family parity tests: the reduced configs of both packages
-and the reference's initial weights with the q/k/v biases redrawn."""
+"""Shared by the family parity tests: the reduced configs of both packages,
+the reference's initial weights with the q/k/v biases redrawn, and
+numpy-seeded batches (codebook tokens and image embeddings included)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +31,15 @@ OVERRIDES = {
                             num_shared_experts=4, d_ff=32),
     "llama4-scout-17b-a16e": dict(num_experts=16, num_experts_per_tok=1,
                                   num_shared_experts=1, d_ff=64),
+    # d_inner (2 x 64) = 4 heads x 32: reduced() sizes the heads for its
+    # own d_model of 256
+    "mamba2-130m": dict(ssm_head_dim=32),
+    # 5 layers: one (rglru, rglru, lattn) repeat and the (rglru, rglru)
+    # remainder stage
+    "recurrentgemma-9b": dict(num_layers=5),
+    "musicgen-large": {},
+    # 5 layers: one (attn x4, xattn) repeat
+    "llama-3.2-vision-90b": dict(num_layers=5),
 }
 BIAS = ["qwen1.5-4b", "qwen2.5-14b"]
 MOE = ["qwen2-moe-a2.7b", "llama4-scout-17b-a16e"]
@@ -71,6 +81,25 @@ def _batch(seed=0, vocab=128):
             for k in ("tokens", "labels")}
     return ({k: jnp.asarray(v) for k, v in data.items()},
             {k: torch.from_numpy(v).long() for k, v in data.items()})
+
+
+def _batch_for(cfg, seed=0, b=4, s=32):
+    """(jax batch, torch batch) for ``cfg``: tokens and labels, (b, s) or
+    (b, s, K) with K codebooks, and N(0, 1) image embeddings (b, P, d) in
+    the config's dtype for a config with image tokens."""
+    rng = np.random.default_rng(seed)
+    shape = (b, s, cfg.num_codebooks) if cfg.num_codebooks else (b, s)
+    data = {k: rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+            for k in ("tokens", "labels")}
+    jb = {k: jnp.asarray(v) for k, v in data.items()}
+    tb = {k: torch.from_numpy(v).long() for k, v in data.items()}
+    if cfg.num_image_tokens:
+        img = rng.standard_normal((b, cfg.num_image_tokens, cfg.d_model))
+        img = img.astype(np.float32)
+        jb["image_embeds"] = jnp.asarray(img).astype(cfg.dtype)
+        tb["image_embeds"] = interop.to_torch(np.asarray(jb["image_embeds"]),
+                                              "cpu")
+    return jb, tb
 
 
 def _f32(x) -> np.ndarray:

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
-from repro_torch import configs, interop
+from repro_torch import configs, interop, tree_leaves
 from repro_torch.api import Platform
 from repro_torch.core.jobspec import FLJobSpec, PartySpec
 from repro_torch.examples import federated_100m, multijob_scheduler
@@ -79,20 +79,21 @@ def test_federated_100m_run_matches_reference():
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_probe_sizes_its_operands_from_the_leaves(dtype, monkeypatch):
-    """The probe folds an update in the model's dtype into an fp32
-    accumulator of the model's total element count: the operands of the
-    aggregator's own folds, summed over the leaves. The CPU caps the
-    accumulator at CPU_PROBE_CAP bytes and scales the time linearly."""
+    """The probe is the aggregator's own fold (``ops.accumulate``, one
+    pair_fuse a leaf) of an update in the model's dtype into an fp32
+    accumulator with the model's leaf sizes: the operands of the
+    aggregator's folds, leaf for leaf. The CPU caps the accumulator at
+    CPU_PROBE_CAP bytes, every leaf cut by the same factor, and scales the
+    time by the elements left out."""
     cfg = configs.get_config("qwen3-0.6b").reduced(
         num_layers=1, d_model=32, vocab_size=64, d_ff=64, dtype=dtype)
     calls = []
-    real = job_mod.pair_fuse
+    real = ops.pair_fuse
 
     def spy(a, b, **kw):
         calls.append((a.dtype, b.dtype, a.numel()))
         return real(a, b, **kw)
 
-    monkeypatch.setattr(job_mod, "pair_fuse", spy)
     monkeypatch.setattr(ops, "pair_fuse", spy)
     spec = FLJobSpec(job_id="probe", model_arch=cfg.name,
                      model_bytes=M.n_params(cfg) * 2, rounds=1, lr=0.05,
@@ -102,13 +103,12 @@ def test_probe_sizes_its_operands_from_the_leaves(dtype, monkeypatch):
                            eval_sequences=4)
     n = M.n_params(cfg)
     dt = getattr(torch, dtype)
-    probe = [c for c in calls[:4]]  # warmup + 3 timed calls
-    assert probe == [(torch.float32, dt, n)] * 4
-    # the folds that followed: one per leaf of the second update, with
-    # the same operand dtypes, over the same elements in all
-    folds = calls[4:]
-    assert {c[:2] for c in folds} == {(torch.float32, dt)}
-    assert sum(c[2] for c in folds) == n
+    sizes = [s.numel() for s in tree_leaves(res.runtime.global_params)]
+    leaves = [(torch.float32, dt, k) for k in sizes]
+    assert calls[:4 * len(sizes)] == leaves * 4  # warmup + 3 timed folds
+    # the folds that followed: one per leaf of the second update, with the
+    # same operands
+    assert calls[4 * len(sizes):] == leaves
     assert res.runtime.t_pair0 > 0
     # t_upd still prices the bf16 bytes the parties ship
     assert res.runtime.spec.model_bytes == n * 2
@@ -116,5 +116,7 @@ def test_probe_sizes_its_operands_from_the_leaves(dtype, monkeypatch):
     # the CPU cap: a probe of at most CPU_PROBE_CAP // 4 elements
     calls.clear()
     monkeypatch.setattr(job_mod, "CPU_PROBE_CAP", 4096)
-    t = job_mod.probe_t_pair(n, dt, torch.device("cpu"))
-    assert calls == [(torch.float32, dt, 1024)] * 4 and t > 0
+    t = job_mod.probe_t_pair(sizes, dt, torch.device("cpu"))
+    cut = [(torch.float32, dt, max(1, k * 1024 // n)) for k in sizes]
+    assert calls == cut * 4 and t > 0
+    assert sum(c[2] for c in cut) <= 1024 + len(sizes)
