@@ -10,10 +10,11 @@ with a non-zero exit; no phase catches its own error):
  2. build the hand-written CUDA kernels from src/repro_torch/kernels/csrc;
  3. hold each kernel against its plain PyTorch version on the card, at the
     main path's shapes, a ragged one, and for fused_agg and quant_agg one
-    whose K x N exceeds 2**31 (the cost table's rows do), and time both,
-    the kernel's bound and one PyTorch call computing the same function;
-    and the party-side int8 ``quantize`` on the card against the CPU's, bit
-    for bit;
+    whose K x N exceeds 2**31 (the cost table's rows do), at the default
+    launch shape and, bit for bit the same, at every other legal one; time
+    both, the kernel's bound and one PyTorch call computing the same
+    function; and the party-side int8 ``quantize`` on the card against the
+    CPU's, bit for bit;
  4. the main path: ``Platform().train`` of qwen3-0.6b at full width (bf16),
     3 parties, 2 FedAvg rounds; the streaming fold must go through the
     pair_fuse kernel. One real fold of a party's update (all 14 leaves,
@@ -29,8 +30,10 @@ with a non-zero exit; no phase catches its own error):
  7. the fused global model saved as a checkpoint and loaded back onto the
     card, bit for bit;
  8. the simulation vehicles priced on the card: a kernel cost table
-    measured through the three kernels at the synthetic fleets' model
-    sizes and qwen3-0.6b's (each row no faster than 0.95 x its roofline,
+    searched and measured through the three kernels (every legal launch
+    shape timed, the fastest kept) at the synthetic fleets' model
+    sizes and qwen3-0.6b's (each row no faster than 0.95 x its roofline
+    and, by device time, no slower than 1.25 x,
     the full-size pair_fuse row within 25 % of phase 4's t_pair probe
     scaled to the row's bytes, written to chiprun_out/), then the main
     path's measured arrivals
@@ -74,7 +77,18 @@ with a non-zero exit; no phase catches its own error):
     full forward at full depth for mamba2-130m and recurrentgemma-9b; the
     card against the CPU on the four reduced configs;
     ``scripts/torch_smoke_models.py`` over every architecture on the card;
-13. one JSON line with every kernel's numbers, then the result line.
+13. the card's name and power limit again; each launcher run of phases 11
+    and 12 (the train step; prefill and decode of each served config) and
+    phase 4's local step beside ``analytic_roofline``'s compute and memory
+    terms on one H100, from the times those phases took; qwen3-0.6b's
+    B 8 x 128 train step counted on the card by ``FlopCounterMode``, which
+    must equal its count on meta tensors (``launch.dryrun``); the launch-
+    shape search at the cost table's sizes and qwen3-0.6b's leaf sizes
+    (default, best and bound of each; the host launch cost; rows to
+    chiprun_out/launch_shape_search.json); phase 3's times within 1.25 x
+    their bound (the cost table's rows are held to it in phase 8, by
+    device time);
+14. one JSON line with every kernel's numbers, then the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -82,6 +96,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -90,7 +105,6 @@ import tempfile
 import time
 from pathlib import Path
 
-FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 MAIN_N = 151_936 * 1024  # qwen3-0.6b's largest leaf (embed, lm_head)
 RAGGED_N = 1_000_003
 BIG_K, BIG_N = 8, 300_000_000  # K x N = 2.4e9 > 2**31 elements
@@ -119,6 +133,9 @@ RECURRENT_TRAIN = (("mamba2-130m", 24, True), ("recurrentgemma-9b", 3, False),
 RECURRENT_SERVES = (("mamba2-130m", 24, 8), ("recurrentgemma-9b", 38, 4),
                     ("musicgen-large", 48, 4), ("llama-3.2-vision-90b", 5, 4))
 CARD_BYTES = 80e9
+# a kernel's device time over its bound, at most: phase 3's times and the
+# cost table's rows (PERF.md section 2)
+KERNEL_LIMIT = 1.25
 
 
 def log(*a) -> None:
@@ -126,7 +143,11 @@ def log(*a) -> None:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds of ``fn`` on the card, timed with CUDA events."""
+    """Milliseconds of ``fn`` on the card: the median over 3 runs of the
+    mean of ``iters`` calls between CUDA events. One run of 20 right
+    after the caching allocator has handed gigabytes back to the driver
+    can read 16 % slow (pair_fuse 0.596 ms, then 0.514; ``PERF.md`` §6),
+    so a single run is not kept."""
     import torch
 
     for _ in range(warmup):
@@ -134,20 +155,49 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    runs = []
+    for _ in range(3):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return statistics.median(runs)
 
 
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    from repro_torch.kernels.autotune import HBM_BYTES_PER_S
+    """The H100's least time for the bytes and the fp32 operations (outside
+    the tensor cores: the kernels' multiply-adds never reach them)."""
+    from repro_torch.launch.mesh import H100
+    from repro_torch.launch.roofline import bandwidth_time_s
 
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / FP32_FLOPS * 1e3
+    t_bytes = bandwidth_time_s(n_bytes, H100) * 1e3
+    t_ops = n_flops / H100.peak_flops_fp32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def other_shapes(kernel: str, k: int, n: int, update_itemsize: int):
+    """The legal launch shapes (bn, kb) of ``kernel`` over n elements but
+    the default, which the kernel's results at each are held against."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.build import default_tile
+
+    return [c for c in autotune.candidates(kernel, k, n, update_itemsize)
+            if c != default_tile(kernel)]
+
+
+def same_at_every_shape(name: str, got, launch, shapes) -> int:
+    """``launch(bn, kb)`` at each of ``shapes`` equals ``got`` (the default
+    shape's result) bit for bit: each element's arithmetic is the same at
+    every shape. Returns the shapes checked, the default included."""
+    import torch
+
+    for bn, kb in shapes:
+        if not torch.equal(launch(bn, kb), got):
+            raise AssertionError(f"{name} at bn={bn} kb={kb} differs from "
+                                 f"the default shape")
+    return len(shapes) + 1
 
 
 # --------------------------------------------------------------------------
@@ -183,10 +233,16 @@ def check_pair_fuse(torch, gen):
                     scale = wa * a.float().abs() + wb * b.float().abs()
                     ok = bool((err <= ulp * scale).all())
                 e = float(err.max())
-                log(f"  pair_fuse {op:4s} {str(ta)[6:]}+{str(tb)[6:]} "
-                    f"N={n}: max_abs_err={e:.3e} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"pair_fuse {op} disagrees: {e}")
+                shapes = same_at_every_shape(
+                    f"pair_fuse {op}", got,
+                    lambda bn, kb: pair_fuse(a, b, op=op, wa=wa, wb=wb,
+                                             bn=bn, kb=kb),
+                    other_shapes("pair_fuse", 2, n, tb.itemsize))
+                log(f"  pair_fuse {op:4s} {str(ta)[6:]}+{str(tb)[6:]} "
+                    f"N={n}: max_abs_err={e:.3e}, the same bits at all "
+                    f"{shapes} legal launch shapes ok")
                 worst = max(worst, e)
                 del got, want, err
             del a, b
@@ -222,12 +278,17 @@ def check_fused_agg(torch, gen):
         err = (got.float() - want.float()).abs()
         ok = bool((err <= tol * scale).all())
         e = float(err.max())
-        log(f"  fused_agg K={k:2d} {str(dt)[6:]} N={n}: "
-            f"max_abs_err={e:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"fused_agg disagrees: {e}")
+        del want, scale, err
+        shapes = same_at_every_shape(
+            "fused_agg", got, lambda bn, kb: fused_agg(u, w, bn=bn, kb=kb),
+            other_shapes("fused_agg", k, n, dt.itemsize))
+        log(f"  fused_agg K={k:2d} {str(dt)[6:]} N={n}: "
+            f"max_abs_err={e:.3e}, the same bits at all {shapes} legal "
+            f"launch shapes ok")
         worst = max(worst, e)
-        del u, got, want, scale, err
+        del u, got
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return worst
@@ -296,12 +357,17 @@ def check_quant_agg(torch, gen):
         scale = quant_agg_ref(q.abs(), s)
         ok = bool((err <= k * 2.0 ** -23 * scale).all())
         e = float(err.max())
-        log(f"  quant_agg K={k:2d} N={n}{' base+1' if offset else ''}: "
-            f"max_abs_err={e:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"quant_agg disagrees: {e}")
+        del err, scale
+        shapes = same_at_every_shape(
+            "quant_agg", got, lambda bn, kb: quant_agg(q, s, bn=bn, kb=kb),
+            other_shapes("quant_agg", k, n, 1))
+        log(f"  quant_agg K={k:2d} N={n}{' base+1' if offset else ''}: "
+            f"max_abs_err={e:.3e}, the same bits at all {shapes} legal "
+            f"launch shapes ok")
         worst = max(worst, e)
-        del buf, q, got, err, scale
+        del buf, q, got
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return worst
@@ -429,12 +495,12 @@ def check_trained(torch, cfg, res, loss0):
             raise AssertionError("fused parameters not finite")
 
 
-def fold_against_probe(torch, res, trials: int = 3) -> None:
+def fold_against_probe(torch, res, trials: int = 7) -> None:
     """One real fold, timed as the probe times itself: the fold that
     ``AggregationExecutor.drain`` applies to each message
     (``FusionState.fold``) of the last round's second update into the
     accumulator holding its first, every leaf, synchronised; the median of
-    ``trials`` after a warmup, on the host clock. The probe
+    ``trials`` after 3 warmups, on the host clock. The probe
     (``probe_t_pair``) must predict it within 25 %."""
     from repro_torch import tree_leaves
     from repro_torch.fl.fusion import FusionState, get_algorithm
@@ -450,7 +516,8 @@ def fold_against_probe(torch, res, trials: int = 3) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    timed()  # warmup
+    for _ in range(3):  # warmup
+        timed()
     fold = statistics.median(timed() for _ in range(trials))
     ratio = fold / rt.t_pair0
     log(f"  one real fold ({len(tree_leaves(updates[1]))} leaves, host "
@@ -722,17 +789,30 @@ def cost_table(torch, res, card):
     from repro_torch.kernels import autotune
 
     torch.cuda.empty_cache()
-    measured = autotune.build_cost_table(TABLE_SIZES, basis="measured")
+    trace: list = []
+    measured = autotune.build_cost_table(TABLE_SIZES, basis="measured",
+                                         trace=trace)
     roof = autotune.build_cost_table(TABLE_SIZES, basis="roofline")
-    log(f"  cost table on {card} (t_pair per pair, CUDA events):")
-    log("  kernel,model_bytes,K,measured_ms,roofline_ms,measured/roofline")
+    device = {(t.kernel, t.n, t.bn, t.kb): t.graph_s for t in trace}
+    log(f"  cost table on {card} (t_pair per pair, CUDA events, at the "
+        f"searched launch shape: bn elements a block, kb elements a thread; "
+        f"device time from a CUDA graph of the same launches):")
+    log("  kernel,model_bytes,K,bn,kb,measured_ms,roofline_ms,"
+        "measured/roofline,device/roofline")
     for m, r in zip(measured.entries, roof.entries, strict=True):
+        spec = autotune.KERNELS[m.kernel]
         ratio = m.t_pair_s / r.t_pair_s
-        log(f"  {m.kernel},{m.model_bytes},{m.kb},{m.t_pair_s * 1e3:.4f},"
-            f"{r.t_pair_s * 1e3:.4f},{ratio:.4f}")
+        dev = device[(m.kernel, m.model_bytes // spec.in_itemsize, m.bn,
+                      m.kb)] / autotune._pairs(m.kernel, spec.k) / r.t_pair_s
+        log(f"  {m.kernel},{m.model_bytes},{spec.k},{m.bn},{m.kb},"
+            f"{m.t_pair_s * 1e3:.4f},{r.t_pair_s * 1e3:.4f},{ratio:.4f},"
+            f"{dev:.4f}")
         if ratio < 0.95:
             raise AssertionError(f"{m.kernel} at {m.model_bytes} B: "
                                  f"measured faster than its roofline")
+        if dev > KERNEL_LIMIT:
+            raise AssertionError(f"{m.kernel} at {m.model_bytes} B: device "
+                                 f"time {dev:.4f} x its roofline")
     full = measured.t_pair(TABLE_SIZES[-1])
     row_bytes = autotune.kernel_bytes_moved("pair_fuse", 2,
                                             TABLE_SIZES[-1] // 4)
@@ -750,7 +830,7 @@ def cost_table(torch, res, card):
     out.mkdir(exist_ok=True)
     measured.dump(out / "kernel_cost_table.json")
     log(f"  wrote {out / 'kernel_cost_table.json'}")
-    return measured
+    return measured, trace
 
 
 def fleets(table, res, card):
@@ -1103,8 +1183,8 @@ def serve_full(torch, name: str, batch: int, card: str,
     tokens; the conditioned comparison gives it a capacity factor at which
     no expert drops a token."""
     from repro_torch import configs, tree_leaves
-    from repro_torch.kernels.autotune import HBM_BYTES_PER_S
     from repro_torch.launch import serve
+    from repro_torch.launch.roofline import bandwidth_time_s
     from repro_torch.models import model as M
 
     cfg = configs.get_config(name)
@@ -1135,7 +1215,7 @@ def serve_full(torch, name: str, batch: int, card: str,
     p_bytes = M.n_params(cfg) * 2
     steady = out.step_s[8:]
     ms = statistics.median(steady) * 1e3
-    bound = (p_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    bound = bandwidth_time_s(p_bytes + kv_bytes) * 1e3
     out.cache = None
     agree, gap = agreement(torch, cfg, params, prompt, out, img)
     row = {"config": name, "layers": cfg.num_layers, "batch": batch,
@@ -1443,6 +1523,7 @@ def launchers(torch, card: str) -> None:
     log("  phase 11 summary: " + json.dumps(
         {"card": card, "serve": rows, "decode_profile": prof,
          "decode_vs_forward_gap": gap, "train": tr}))
+    return rows, tr
 
 
 # --------------------------------------------------------------------------
@@ -1500,6 +1581,197 @@ def recurrent_families(torch, card: str) -> None:
     log("  phase 12 summary: " + json.dumps(
         {"card": card, "train": trained, "serve": rows,
          "decode_vs_forward_gap": gaps, "serve_launches": serve_launches}))
+    return rows
+
+# --------------------------------------------------------------------------
+# phase 13: the roofline of the launchers and the launch-shape search
+# --------------------------------------------------------------------------
+def local_steps(res) -> dict:
+    """Phase 4's local training: seconds a local step (each party-round's
+    host time over its steps of ``batch_size``), by round and party."""
+    rt = res.runtime
+    steps = {pid: -(-p.n_examples // rt.spec.batch_size)
+             for pid, p in rt.parties.items()}
+    per_step = [t / steps[pid] for measured in rt.measured_rounds
+                for pid, (t, _) in measured.items()]
+    return {"steps_per_party_round": sorted(set(steps.values())),
+            "step_s": per_step, "batch": rt.spec.batch_size,
+            "seq_len": int(rt.eval_data["tokens"].shape[1])}
+
+
+def roofline_rows(p4, serve_rows, train_row) -> list:
+    """Each launcher run of phases 11 and 12 and phase 4's local step:
+    measured time beside ``analytic_roofline(cfg, shape, 1, 0.0, H100)``'s
+    compute and memory terms, their ratio, and the hand bound where the
+    phase took one (weights + cache over 3.35 TB/s, decode only)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import H100
+    from repro_torch.launch.roofline import analytic_roofline
+
+    def cfg_of(name, layers):
+        cfg = configs.get_config(name)
+        return cfg if layers is None else dataclasses.replace(
+            cfg, num_layers=layers)
+
+    runs = [("phase 4 local step (SGD)", cfg_of("qwen3-0.6b", None),
+             InputShape("local", p4["seq_len"], p4["batch"], "train"),
+             statistics.median(p4["step_s"]) * 1e3, None),
+            ("phase 11 train.main step (AdamW)", cfg_of("qwen3-0.6b", None),
+             InputShape("train", 128, 8, "train"),
+             train_row["step_s"] * 1e3, None)]
+    for r in serve_rows:
+        cfg = cfg_of(r["config"], r["layers"])
+        runs.append((f"{r['config']} prefill", cfg, InputShape(
+            "prefill", r["prompt"], r["batch"], "prefill"),
+            r["prefill_ms"], None))
+        runs.append((f"{r['config']} decode", cfg, InputShape(
+            "decode", r["prompt"] + r["tokens"], r["batch"], "decode"),
+            r["decode_ms"], r["decode_bound_ms"]))
+    out = []
+    for label, cfg, shape, ms, hand in runs:
+        rl = analytic_roofline(cfg, shape, 1, 0.0, H100)
+        bound = max(rl.compute_s, rl.memory_s) * 1e3
+        row = {"run": label, "config": cfg.name, "layers": cfg.num_layers,
+               "batch": shape.global_batch, "seq": shape.seq_len,
+               "kind": shape.kind, "ms": ms,
+               "compute_ms": rl.compute_s * 1e3,
+               "memory_ms": rl.memory_s * 1e3, "dominant": rl.dominant,
+               "over_roofline": ms / bound, "hand_bound_ms": hand}
+        out.append(row)
+        log(f"  {label} ({cfg.name}, {cfg.num_layers} layers, B "
+            f"{shape.global_batch} x {shape.seq_len}, {shape.kind}): "
+            f"{ms:.4f} ms; roofline compute {row['compute_ms']:.4f} ms, "
+            f"memory {row['memory_ms']:.4f} ms ({rl.dominant}); measured / "
+            f"roofline {row['over_roofline']:.2f}"
+            + (f"; hand bound {hand:.4f} ms" if hand is not None else ""))
+    return out
+
+
+def flops_on_card(torch, train_row) -> dict:
+    """qwen3-0.6b's B 8 x 128 train step (``launch.steps``' AdamW step) on
+    the card under ``FlopCounterMode``: the count must equal its meta
+    count (``launch.dryrun``) exactly, operator by operator. With phase
+    11's step time it gives the achieved rate and its share of the bf16
+    peak."""
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import H100
+    from repro_torch.launch.roofline import analytic_roofline
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    cfg = configs.get_config("qwen3-0.6b")
+    shape = InputShape("train", 128, 8, "train")
+    fn, meta_args, _ = steps.build(cfg, shape)
+    _, meta, meta_ops = dryrun.counted_flops(fn, *meta_args)
+    free(torch)
+    params = M.init(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    tok = torch.randint(0, cfg.vocab_size, (8, 128), device="cuda",
+                        dtype=torch.int32,
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+    _, card, card_ops = dryrun.counted_flops(
+        fn, params, adamw(3e-4).init(params), batch)
+    torch.cuda.synchronize()
+    del params, tok, batch
+    analytic = analytic_roofline(cfg, shape, 1, 0.0, H100).flops
+    rate = card / train_row["step_s"]
+    row = {"counted_card": card, "counted_meta": meta, "analytic": analytic,
+           "by_op": card_ops, "tflops_per_s": rate / 1e12,
+           "share_of_bf16_peak": rate / H100.peak_flops_bf16}
+    log(f"  qwen3-0.6b train step B 8 x 128 on the card: {card:.6e} FLOPs "
+        f"counted {card_ops}; on meta tensors {meta:.6e}; analytic "
+        f"{analytic:.6e} (counted / analytic {card / analytic:.4f}); at "
+        f"phase 11's {train_row['step_s'] * 1e3:.2f} ms a step "
+        f"{row['tflops_per_s']:.3f} TFLOP/s, {100 * row['share_of_bf16_peak']:.3f}"
+        f" % of the bf16 peak")
+    if card != meta or card_ops != meta_ops:
+        raise AssertionError("the card's FLOP count differs from the meta "
+                             "count of the same step")
+    return row
+
+
+def launch_shape_search(torch, card: str, table_rows) -> dict:
+    """The launch-shape search on the card: phase 8's cost-table sizes
+    (fp32; int8 for quant_agg; K = 2 / 8 / 8) and every distinct leaf size
+    of qwen3-0.6b at the main path's operands (pair_fuse folding a bf16
+    update into the fp32 accumulator, fused_agg over 3 bf16 updates,
+    quant_agg over 3 int8 rows). For each kernel and size: the default
+    shape and the best (least device time), each as eager and CUDA-graph
+    time, against the bound; the host launch cost and the per-block
+    allowance fitted from the rows. Every row goes to
+    chiprun_out/launch_shape_search.json."""
+    from repro_torch import configs, tree_leaves
+    from repro_torch.kernels import autotune
+    from repro_torch.models import model as M
+
+    cfg = configs.get_config("qwen3-0.6b")
+    sizes = sorted({math.prod(s.shape)
+                    for s in tree_leaves(M.param_specs(cfg))})
+    rows = list(table_rows)
+    for n in sizes:
+        rows += autotune.search("pair_fuse", n, 2, "cuda", torch.bfloat16)
+        rows += autotune.search("fused_agg", n, 3, "cuda", torch.bfloat16)
+        rows += autotune.search("quant_agg", n, 3, "cuda")
+    over = autotune.measure_overheads("cuda")
+    block_s = autotune.fit_block_s(rows)
+    log(f"  host launch cost {over['launch_host_s'] * 1e6:.3f} us a call "
+        f"(host clock); one smallest-block launch {over['launch_device_s'] * 1e6:.3f}"
+        f" us of device time (CUDA graph); per-block allowance fitted "
+        f"{block_s * 1e9:.4f} ns ({card})")
+    log("  kernel,n,K,update_bytes,default bn/kb,default eager_ms,"
+        "default graph_ms,best bn/kb,best eager_ms,best graph_ms "
+        "(spread),bound_ms,best graph/bound,best eager/bound,"
+        "best beats default beyond the spread")
+    groups: dict = {}
+    for r in rows:
+        groups.setdefault((r.kernel, r.n, r.k, r.update_itemsize), []
+                          ).append(r)
+    summary = []
+    for (kernel, n, k, usize), g in groups.items():
+        d, b = autotune.default_of(g), autotune.best(g)
+        bound = b.roofline_s
+        # the default is not legal on a problem smaller than its block
+        d = d or dataclasses.replace(b, bn=0, kb=0, eager_s=math.nan,
+                                     graph_s=math.nan, graph_spread_s=0.0)
+        beats = d.graph_s - b.graph_s > max(d.graph_spread_s,
+                                            b.graph_spread_s)
+        legal = d.bn > 0
+        summary.append({
+            "kernel": kernel, "n": n, "k": k, "update_itemsize": usize,
+            "default": [d.bn, d.kb] if legal else None,
+            "default_eager_ms": d.eager_s * 1e3 if legal else None,
+            "default_graph_ms": d.graph_s * 1e3 if legal else None,
+            "best": [b.bn, b.kb],
+            "best_eager_ms": b.eager_s * 1e3, "best_graph_ms": b.graph_s * 1e3,
+            "best_spread_ms": b.graph_spread_s * 1e3, "bound_ms": bound * 1e3,
+            "beats_default": beats})
+        log(f"  {kernel},{n},{k},{usize},{d.bn}/{d.kb},{d.eager_s * 1e3:.4f},"
+            f"{d.graph_s * 1e3:.4f},{b.bn}/{b.kb},{b.eager_s * 1e3:.4f},"
+            f"{b.graph_s * 1e3:.4f} ({b.graph_spread_s * 1e3:.4f}),"
+            f"{bound * 1e3:.6f},{b.graph_s / bound:.3f},"
+            f"{b.eager_s / bound:.3f},{beats}")
+    out = Path(__file__).resolve().parent / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "launch_shape_search.json").write_text(json.dumps(
+        {"card": card, "overheads": over, "block_s": block_s,
+         "rows": [dataclasses.asdict(r) for r in rows]}, indent=1))
+    log(f"  wrote {out / 'launch_shape_search.json'} ({len(rows)} timed "
+        f"shapes)")
+    return {"overheads": over, "block_s": block_s, "rows": summary}
+
+
+def kernel_limit(kernels: list) -> None:
+    """Phase 3's times (device-bound launches at the main path's largest
+    leaf) at most KERNEL_LIMIT x their bound."""
+    for t in kernels:
+        ratio = t["ms"] / t["bound_ms"]
+        log(f"  {t['name']} at its main-path shape: {ratio:.4f} x its bound"
+            f" (limit {KERNEL_LIMIT} x)")
+        if ratio > KERNEL_LIMIT:
+            raise AssertionError(f"{t['name']}: {ratio:.4f} x its bound")
 
 
 def main() -> int:
@@ -1539,12 +1811,14 @@ def main() -> int:
     # 3. kernels against their plain versions, and their times
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     log("phase 3: kernels against their plain versions")
+    # timed first: after the checks' 10 GB operands go back to the driver,
+    # the next tens of milliseconds of launches run slow (PERF.md section 6)
+    t_pf, t_fa = time_kernels(torch, gen)
+    t_qa = time_quant_agg(torch, gen)
     err_pf = check_pair_fuse(torch, gen)
     err_fa = check_fused_agg(torch, gen)
-    t_pf, t_fa = time_kernels(torch, gen)
     err_qa = check_quant_agg(torch, gen)
     check_quantize(torch, gen)
-    t_qa = time_quant_agg(torch, gen)
     for name, t in (("pair_fuse", t_pf), ("fused_agg", t_fa)):
         log(f"  {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms by "
             f"{t['bound_by']}), plain {t['plain_ms']:.4f} ms, library "
@@ -1558,6 +1832,7 @@ def main() -> int:
     # 4. the main path
     log("phase 4: main path")
     res, main_launches = main_path(torch)
+    p4 = local_steps(res)
     small_agreement(torch)
 
     # 5. the batch path
@@ -1575,7 +1850,7 @@ def main() -> int:
 
     # 8. the simulation vehicles priced on the card
     log(f"phase 8: the simulation vehicles priced on the card ({smi})")
-    table = cost_table(torch, res, smi)
+    table, table_search = cost_table(torch, res, smi)
     fleets(table, res, smi)
     online_service(table, smi)
     del res, table
@@ -1598,13 +1873,26 @@ def main() -> int:
 
     # 11. the launchers
     log(f"phase 11: the launchers on the card ({smi})")
-    launchers(torch, smi)
+    serve11, train11 = launchers(torch, smi)
 
     # 12. the SSM, RG-LRU hybrid, audio and VLM families
     log(f"phase 12: the SSM, hybrid, audio and VLM families ({smi})")
-    recurrent_families(torch, smi)
+    serve12 = recurrent_families(torch, smi)
 
-    # 13. the record
+    # 13. the roofline of the launchers and the launch-shape search
+    log("phase 13: the roofline of the launchers and the launch-shape "
+        "search")
+    log(smi)
+    rows13 = roofline_rows(p4, serve11 + serve12, train11)
+    flops13 = flops_on_card(torch, train11)
+    search13 = launch_shape_search(torch, smi, table_search)
+    kernel_limit([{"name": n, **t} for n, t in (
+        ("pair_fuse", t_pf), ("fused_agg", t_fa), ("quant_agg", t_qa))])
+    log("  phase 13 summary: " + json.dumps(
+        {"card": smi, "roofline": rows13, "flops": flops13,
+         "search": search13}))
+
+    # 14. the record
     kernels = [
         {"name": "pair_fuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pair_fuse.cu",

@@ -52,11 +52,16 @@ class RoundRecord:
 
 
 def probe_t_pair(leaf_sizes: Sequence[int], update_dtype: torch.dtype,
-                 device: torch.device, trials: int = 3) -> float:
+                 device: torch.device, trials: int = 7) -> float:
     """Offline t_pair measurement (§5.4): median time of one fold of an
     update in ``update_dtype``, with leaves of ``leaf_sizes`` elements, into
-    an fp32 accumulator of the same leaves, already on ``device``, after a
-    warmup, with the device synchronised inside each timed call. The fold
+    an fp32 accumulator of the same leaves, already on ``device``, after
+    3 untimed folds, with the device synchronised inside each timed
+    call. A small model's fold is bound by the host's launches, which the
+    card's host shares with other work: over 3 folds the median of
+    mamba2-130m's probe read 1.0288 ms against a real fold of 0.7214 ms
+    (0.70; chip_smoke.py phase 12 on an NVIDIA H100 80GB HBM3 at 700 W),
+    hence 7 after 3. The fold
     is the aggregator's own (``kernels.ops.accumulate``: one ``pair_fuse``
     wsum a leaf), and the runtime passes the global model's leaf sizes and
     dtype, so the probe pays what a real fold pays for each leaf as well as
@@ -80,7 +85,8 @@ def probe_t_pair(leaf_sizes: Sequence[int], update_dtype: torch.dtype,
             torch.cuda.synchronize(device)
         return time.perf_counter() - t0
 
-    timed()  # warmup
+    for _ in range(3):  # warmup
+        timed()
     t_pair = statistics.median(timed() for _ in range(max(trials, 3)))
     return t_pair * total / sum(sizes)
 

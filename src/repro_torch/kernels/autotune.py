@@ -1,34 +1,50 @@
-"""The ``KernelCostTable`` of the port: t_pair by kernel and model size,
-measured on the card through the hand-written CUDA fusion kernels
-(``csrc/``), which prices the simulation vehicles' fuse work
+"""The launch-shape search of the hand-written CUDA fusion kernels
+(``csrc/``), and the port's ``KernelCostTable``: t_pair by kernel and model
+size, measured on the card, which prices the simulation vehicles' fuse work
 (``Platform(cost_table=...)``, ``AggregationEstimator(cost_table=...)``).
 
 The counterpart of ``src/repro/kernels/autotune.py``. The table
 (``CostEntry``, ``KernelCostTable``) keeps the reference's fields,
 interpolation and JSON layout, so a table dumped by either package loads in
-the other and gives the same ``t_pair`` at any size. What differs is what
-prices it:
+the other and gives the same ``t_pair`` at any size. The search keeps the
+reference's functions (``candidates``, ``grid_steps``, ``modeled_time_s``,
+``TileChoice``, ``autotune``) with CUDA meanings:
 
-  * **The byte model** (``kernel_bytes_moved``) is that of the CUDA
-    kernels. Each block owns one 2,048-element slab of N and loops over all
-    K rows in registers, so every input byte is read once and every output
-    byte written once: no K-slab revisits of the output and no padding
-    (the TPU kernels pad to their tile and revisit the fp32 output once per
-    K slab).
-  * ``basis="roofline"`` is that byte model over the H100's memory rate,
-    pure arithmetic that runs anywhere.
-  * ``basis="measured"`` launches the kernels on the card and times them
-    with CUDA events. From a model of 50 MB up (the simulated fleets'
+  * **The launch shape** is (V elements a thread, T threads a block), one of
+    the fixed set every library exports (``build.SHAPES``, 3 x 4 pairs;
+    defaults ``build.DEFAULT_SHAPES``: 4 x 256 for pair_fuse, 8 x 256 for
+    fused_agg and quant_agg). It rides in the reference's tile fields: ``bn`` is
+    the elements a block owns (V x T, the TPU tile's elements) and ``kb``
+    the elements a thread (V), so T = bn / kb. K, the updates one launch
+    fuses, is not recorded: it is ``KERNELS[kernel].k`` (2 for pair_fuse,
+    8 for fused_agg and quant_agg; the reference's default ``kb`` for
+    fused_agg; for quant_agg the reference's 32 is the TPU's int8 sublane
+    tile, which the CUDA kernel does not have).
+  * **The byte model** (``kernel_bytes_moved``) does not depend on the
+    shape. Each block owns V x T elements of N and loops over all K rows in
+    registers, so every input byte is read once and every output byte
+    written once: no K-slab revisits of the output and no padding (the TPU
+    kernels pad to their tile and revisit the fp32 output once per K slab).
+  * **Legality** (``candidates``): every operand moves in whole vectors, a
+    thread's span of each (V x its itemsize) 8, 16, 32 or 64 bytes (one
+    8-byte vector, or one to four 16-byte vectors); and no block larger than
+    the problem padded to the smallest such block.
+  * **The score** (``modeled_time_s``): ``roofline.bandwidth_time_s`` of the
+    bytes over the H100's memory rate, plus the blocks times a per-block
+    allowance (``BLOCK_S``), plus a per-launch host cost (``LAUNCH_S``).
+    The closed-form ``autotune`` runs anywhere and never launches a kernel.
+  * ``build_cost_table(basis="measured")`` searches on the card: it times
+    every legal shape with CUDA events (``measure``: eager launches, and
+    the same launches replayed as one CUDA graph, which leaves out the
+    host's launch cost) and records the shape whose device time is least,
+    with its eager time. From a model of 50 MB up (the simulated fleets'
     sizes), each launch moves more than the 50 MB L2 and so finds its
-    operands cold, as an aggregator does.
+    operands cold, as an aggregator does. ``basis="roofline"`` prices each
+    entry from the byte model over the memory rate, at the closed-form
+    choice.
 
 The per-pair share of one ``fused_agg`` or ``quant_agg`` launch over K
-updates is its time over K - 1, as in the reference. K is 8 for both: the
-reference's default ``kb`` for ``fused_agg``; for ``quant_agg`` the
-reference's 32 is the TPU's int8 sublane tile, which the CUDA kernel does
-not have. The CUDA kernels have one launch shape (256 threads of 8
-elements), so there is no tile search here; each entry records K in ``kb``
-and the 2,048-element slab in ``bn``.
+updates is its time over K - 1, as in the reference.
 
     python -m repro_torch.kernels.autotune --basis measured --out table.json
 """
@@ -36,13 +52,29 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
-#: H100 SXM memory rate, NVIDIA data sheet
-HBM_BYTES_PER_S = 3.35e12
-#: elements one block of each kernel owns (csrc/common.cuh: 256 x 8)
-SLAB = 2048
-#: timed launches per measured entry, after WARMUP untimed ones
+from repro_torch.kernels.build import SHAPES, default_tile
+from repro_torch.launch.mesh import H100, HardwareSpec
+from repro_torch.launch.roofline import bandwidth_time_s
+
+#: bytes a thread may move of one operand: one 8-byte vector, or one to
+#: four 16-byte vectors
+LEGAL_SPANS = (8, 16, 32, 64)
+#: modeled per-block cost (``fit_block_s`` over the search's rows) and
+#: per-launch host cost (``measure_overheads``), both measured by
+#: chip_smoke.py phase 13 on an NVIDIA H100 80GB HBM3 at 700 W: -0.074 and
+#: -0.089 ns a block, 17.9 and 36.6 us a launch, in two runs (the host is
+#: shared with other work). The per-block allowance is slightly negative
+#: and within the runs' spread: at fixed bytes and elements a thread, the
+#: block size barely moves a launch, so the closed-form choice is the
+#: smallest legal block; what a thread moves (4, 8 or 16 elements) moves
+#: it more, which only the measured search sees.
+BLOCK_S = -7.44e-11
+LAUNCH_S = 17.86e-6
+#: timed launches per measurement, after WARMUP untimed ones
 ITERS = 10
 WARMUP = 3
 
@@ -66,25 +98,110 @@ KERNELS: Dict[str, KernelShapeSpec] = {
 }
 
 
-def kernel_bytes_moved(kernel: str, k: int, n: int) -> int:
-    """Bytes one launch must move over n elements: each input byte read
-    once, each output byte written once. ``pair_fuse`` reads two fp32
-    vectors and writes one (k is ignored); ``fused_agg`` and ``quant_agg``
-    read K rows and K fp32 weights and write one fp32 row."""
-    spec = KERNELS[kernel]
+def _itemsizes(kernel: str, update_itemsize: Optional[int]) -> Tuple[int, ...]:
+    """Itemsizes of the operands a thread moves: pair_fuse's fp32
+    accumulator and output and its update; fused_agg's updates and output
+    (the updates' dtype); quant_agg's int8 rows and fp32 output."""
+    u = KERNELS[kernel].in_itemsize if update_itemsize is None else update_itemsize
     if kernel == "pair_fuse":
-        return 2 * n * spec.in_itemsize + n * spec.out_itemsize
-    return k * n * spec.in_itemsize + n * spec.out_itemsize + 4 * k
+        return (4, u)
+    if kernel == "fused_agg":
+        return (u,)
+    return (1, 4)
 
 
-def roofline_s(kernel: str, k: int, n: int) -> float:
-    """The least time one launch can take: its bytes over the memory rate
-    (all three kernels do at most 2 flops per byte read)."""
-    return kernel_bytes_moved(kernel, k, n) / HBM_BYTES_PER_S
+def kernel_bytes_moved(kernel: str, k: int, n: int,
+                       update_itemsize: Optional[int] = None) -> int:
+    """Bytes one launch must move over n elements: each input byte read
+    once, each output byte written once, at every launch shape.
+    ``pair_fuse`` reads two vectors (an fp32 accumulator and the update)
+    and writes one fp32 vector (k is ignored); ``fused_agg`` and
+    ``quant_agg`` read K rows and K fp32 weights and write one row (in the
+    updates' dtype, fp32 for quant_agg). ``update_itemsize`` defaults to
+    the table's (``KERNELS``)."""
+    spec = KERNELS[kernel]
+    u = spec.in_itemsize if update_itemsize is None else update_itemsize
+    if kernel == "pair_fuse":
+        return n * spec.out_itemsize + n * u + n * spec.out_itemsize
+    out = u if kernel == "fused_agg" else spec.out_itemsize
+    return k * n * u + n * out + 4 * k
+
+
+def roofline_s(kernel: str, k: int, n: int,
+               update_itemsize: Optional[int] = None) -> float:
+    """The least time one launch can take: its bytes over the card's memory
+    rate (all three kernels do at most 2 flops per byte read)."""
+    return bandwidth_time_s(
+        kernel_bytes_moved(kernel, k, n, update_itemsize), H100)
 
 
 def _pairs(kernel: str, k: int) -> int:
     return 1 if kernel == "pair_fuse" else max(k - 1, 1)
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def grid_steps(kernel: str, k: int, n: int, *, bn: int, kb: int) -> int:
+    """Blocks one launch runs at shape (bn, kb): each owns bn elements of N
+    and loops over all K rows itself."""
+    return -(-max(n, 1) // bn)
+
+
+def modeled_time_s(kernel: str, k: int, n: int, *, bn: int, kb: int,
+                   hw: HardwareSpec = H100,
+                   update_itemsize: Optional[int] = None) -> float:
+    """The search's score: bandwidth roofline of the bytes, plus the blocks
+    times BLOCK_S, plus LAUNCH_S."""
+    bts = kernel_bytes_moved(kernel, k, n, update_itemsize)
+    steps = grid_steps(kernel, k, n, bn=bn, kb=kb)
+    return bandwidth_time_s(bts, hw) + steps * BLOCK_S + LAUNCH_S
+
+
+@dataclasses.dataclass(frozen=True)
+class TileChoice:
+    kernel: str
+    k: int
+    n: int
+    bn: int  # elements a block owns
+    kb: int  # elements a thread
+    bytes_moved: int
+    roofline_s: float  # bytes / hbm_bw at the scoring HardwareSpec
+    modeled_s: float  # roofline_s + blocks and launch (the score)
+
+
+def candidates(kernel: str, k: int, n: int,
+               update_itemsize: Optional[int] = None
+               ) -> List[Tuple[int, int]]:
+    """Legal (bn, kb) pairs for one kernel x shape: every operand in whole
+    vectors (a thread's span of each in LEGAL_SPANS), no block larger than
+    the problem padded to the kernel's smallest such block."""
+    sizes = _itemsizes(kernel, update_itemsize)
+    whole = [(vec * threads, vec) for vec, threads in SHAPES
+             if all(vec * s in LEGAL_SPANS for s in sizes)]
+    max_bn = _ceil_to(max(n, 1), min(bn for bn, _ in whole))
+    return [(bn, kb) for bn, kb in whole if bn <= max_bn]
+
+
+def autotune(kernel: str, k: int, n: int, hw: HardwareSpec = H100,
+             update_itemsize: Optional[int] = None) -> TileChoice:
+    """Pick the (bn, kb) minimising modeled time for one shape, closed-form
+    (no kernel runs). Deterministic: ties break toward the default shape,
+    then the smaller block, then fewer elements a thread."""
+    default = default_tile(kernel)
+    best: Optional[Tuple[Tuple[float, bool, int, int], TileChoice]] = None
+    for bn, kb in candidates(kernel, k, n, update_itemsize):
+        bts = kernel_bytes_moved(kernel, k, n, update_itemsize)
+        t = modeled_time_s(kernel, k, n, bn=bn, kb=kb, hw=hw,
+                           update_itemsize=update_itemsize)
+        key = (t, (bn, kb) != default, bn, kb)
+        if best is None or key < best[0]:
+            best = (key, TileChoice(kernel, k, n, bn, kb, bts,
+                                    bandwidth_time_s(bts, hw), t))
+    if best is None:
+        raise ValueError(f"no legal launch shape for {kernel} k={k} n={n}")
+    return best[1]
 
 
 # --------------------------------------------------------------------------
@@ -93,8 +210,8 @@ def _pairs(kernel: str, k: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class CostEntry:
     """One measurement: fusing updates of ``model_bytes`` with ``kernel``
-    costs ``t_pair_s`` seconds per pair. ``bn`` is the elements a block
-    owns and ``kb`` the updates one launch fuses."""
+    at launch shape (bn, kb) costs ``t_pair_s`` seconds per pair. ``bn`` is
+    the elements a block owns and ``kb`` the elements a thread."""
 
     kernel: str
     model_bytes: int
@@ -174,9 +291,37 @@ class KernelCostTable:
             return cls.from_json(json.load(f))
 
 
-def _measure_pair_s(kernel: str, n: int, k: int, device) -> float:
-    """Seconds per pair of one kernel launch over n elements on the card:
-    the mean of ITERS launches between two CUDA events, after WARMUP."""
+@dataclasses.dataclass(frozen=True)
+class Measured:
+    """One launch shape of one kernel timed on the card (seconds a launch):
+    ``eager_s`` the mean of ITERS launches between CUDA events, the host
+    launching each; ``graph_s`` the median of REPEATS replays of the same
+    ITERS launches captured as one CUDA graph (device time, no host launch
+    cost), and ``graph_spread_s`` their range."""
+
+    kernel: str
+    n: int
+    k: int
+    update_itemsize: int
+    bn: int
+    kb: int
+    eager_s: float
+    graph_s: float
+    graph_spread_s: float
+
+    @property
+    def roofline_s(self) -> float:
+        return roofline_s(self.kernel, self.k, self.n, self.update_itemsize)
+
+
+#: graph replays a measurement takes the median of
+REPEATS = 3
+
+
+def _launcher(kernel: str, n: int, k: int, device, update_dtype):
+    """A function (bn, kb) -> one launch of ``kernel`` over operands drawn
+    once on ``device``: pair_fuse folds an update into an fp32 accumulator
+    (wsum), fused_agg fuses K updates, quant_agg K int8 rows."""
     import torch
 
     from repro_torch.kernels.fused_agg import fused_agg
@@ -186,19 +331,25 @@ def _measure_pair_s(kernel: str, n: int, k: int, device) -> float:
     gen = torch.Generator(device=device).manual_seed(0)
     if kernel == "pair_fuse":
         a = torch.randn(n, generator=gen, device=device)
-        b = torch.randn(n, generator=gen, device=device)
-        fn = lambda: pair_fuse(a, b, op="wsum", wa=0.5, wb=0.5)
-    elif kernel == "fused_agg":
-        u = torch.randn(k, n, generator=gen, device=device)
+        b = torch.randn(n, generator=gen, device=device).to(update_dtype)
+        return lambda bn, kb: pair_fuse(a, b, op="wsum", wa=0.5, wb=0.5,
+                                        bn=bn, kb=kb)
+    if kernel == "fused_agg":
+        u = torch.randn(k, n, generator=gen, device=device).to(update_dtype)
         w = torch.full((k,), 1.0 / k, device=device)
-        fn = lambda: fused_agg(u, w)
-    elif kernel == "quant_agg":
+        return lambda bn, kb: fused_agg(u, w, bn=bn, kb=kb)
+    if kernel == "quant_agg":
         q = torch.randint(-127, 128, (k, n), generator=gen, device=device,
                           dtype=torch.int8)
         s = torch.full((k,), 0.01, device=device)
-        fn = lambda: quant_agg(q, s)
-    else:
-        raise ValueError(kernel)
+        return lambda bn, kb: quant_agg(q, s, bn=bn, kb=kb)
+    raise ValueError(kernel)
+
+
+def _time(fn, device) -> Tuple[float, float, float]:
+    """(eager, graph median, graph range) seconds a launch of ``fn``."""
+    import torch
+
     with torch.cuda.device(device):
         for _ in range(WARMUP):
             fn()
@@ -210,8 +361,110 @@ def _measure_pair_s(kernel: str, n: int, k: int, device) -> float:
             fn()
         end.record()
         torch.cuda.synchronize()
-    t = start.elapsed_time(end) / 1e3 / ITERS
-    return t / _pairs(kernel, k)
+        eager = start.elapsed_time(end) / 1e3 / ITERS
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(ITERS):
+                fn()
+        graph.replay()
+        replays = []
+        for _ in range(REPEATS):
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            replays.append(start.elapsed_time(end) / 1e3 / ITERS)
+        del graph
+    return eager, statistics.median(replays), max(replays) - min(replays)
+
+
+def search(kernel: str, n: int, k: int, device, update_dtype=None
+           ) -> List[Measured]:
+    """Every legal launch shape of ``kernel`` over n elements (K rows)
+    timed on the card (``Measured``), in ``candidates`` order. The
+    operands are drawn once; ``update_dtype`` defaults to the table's
+    (fp32; int8 rows for quant_agg)."""
+    import torch
+
+    if update_dtype is None:
+        update_dtype = torch.float32
+    usize = 1 if kernel == "quant_agg" else update_dtype.itemsize
+    launch = _launcher(kernel, n, k, device, update_dtype)
+    shapes = candidates(kernel, k, n, usize)
+    # one untimed pass first: right after the caching allocator hands
+    # memory back to the driver, the next few milliseconds of launches run
+    # slow (PERF.md section 6), and no shape should pay for it
+    _time(lambda: launch(*shapes[0]), device)
+    rows = []
+    for bn, kb in shapes:
+        eager, graph, spread = _time(lambda: launch(bn, kb), device)
+        rows.append(Measured(kernel, n, k, usize, bn, kb, eager, graph,
+                             spread))
+    return rows
+
+
+def best(rows: Sequence[Measured]) -> Measured:
+    """The shape whose device time is least (ties: the default shape)."""
+    return min(rows, key=lambda r: (r.graph_s,
+                                    (r.bn, r.kb) != default_tile(r.kernel)))
+
+
+def default_of(rows: Sequence[Measured]) -> Optional[Measured]:
+    """The default shape's row; None where the default is not legal (a
+    problem smaller than its block)."""
+    return next((r for r in rows if (r.bn, r.kb) == default_tile(r.kernel)),
+                None)
+
+
+def measure_overheads(device) -> Dict[str, float]:
+    """The costs the score adds to the bytes, measured on ``device``:
+
+    ``launch_host_s``: host time of one ``pair_fuse`` call over one
+    smallest block (wrapper, ctypes and launch), the mean of 1,000 calls
+    on the host clock, unsynchronised (the card keeps up);
+    ``launch_device_s``: device time of the same launch, from a CUDA graph
+    of ITERS launches."""
+    import torch
+
+    from repro_torch.kernels.pair_fuse import pair_fuse
+
+    a = torch.zeros(min(v * t for v, t in SHAPES), device=device)
+    fn = lambda: pair_fuse(a, a, op="wsum", wa=0.5, wb=0.5)
+    _, device_s, _ = _time(fn, device)
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        host_s = (time.perf_counter() - t0) / 1000
+        torch.cuda.synchronize()
+    return {"launch_host_s": host_s, "launch_device_s": device_s}
+
+
+def fit_block_s(rows: Sequence[Measured]) -> float:
+    """The per-block allowance the measured rows give: for each (kernel,
+    n, K, dtype, elements a thread) with three or more shapes, the
+    least-squares slope of device time against the blocks (the bytes and a
+    thread's work fixed, only the block size varying); the median of those
+    slopes."""
+    groups: Dict[Tuple[str, int, int, int, int], List[Measured]] = {}
+    for r in rows:
+        groups.setdefault((r.kernel, r.n, r.k, r.update_itemsize, r.kb), []
+                          ).append(r)
+    slopes = []
+    for g in groups.values():
+        if len(g) < 3:
+            continue
+        xs = [grid_steps(r.kernel, r.k, r.n, bn=r.bn, kb=r.kb) for r in g]
+        ys = [r.graph_s for r in g]
+        mx, my = statistics.fmean(xs), statistics.fmean(ys)
+        sxx = sum((x - mx) ** 2 for x in xs)
+        if sxx:
+            slopes.append(sum((x - mx) * (y - my)
+                              for x, y in zip(xs, ys)) / sxx)
+    if not slopes:
+        raise ValueError("no group of three or more shapes to fit")
+    return statistics.median(slopes)
 
 
 def build_cost_table(
@@ -220,19 +473,21 @@ def build_cost_table(
     *,
     basis: str = "roofline",
     device=None,
+    trace: Optional[List[Measured]] = None,
 ) -> KernelCostTable:
     """One entry per (kernel, model size). n is model_bytes over the
     kernel's input itemsize, as in the reference.
 
     ``basis="roofline"`` prices each entry from the byte model over the
-    memory rate. ``basis="measured"`` launches the CUDA kernels on
-    ``device`` (the card when None; with no card it raises) and frees each
-    entry's operands before the next."""
+    memory rate, at the closed-form ``autotune`` choice.
+    ``basis="measured"`` searches on ``device`` (the card when None; with
+    no card it raises): every legal shape timed (``search``), the entry at
+    the shape of least device time with its eager time; every timed shape
+    is appended to ``trace`` when given. Each entry's operands are freed
+    (to the caching allocator) before the next."""
     if basis not in ("roofline", "measured"):
         raise ValueError(f"basis is 'roofline' or 'measured', not {basis!r}")
     if basis == "measured":
-        import torch
-
         from repro_torch import get_device
 
         device = get_device(device)
@@ -245,13 +500,17 @@ def build_cost_table(
         for mb in sorted(model_sizes_bytes):
             n = max(mb // spec.in_itemsize, 1)
             if basis == "measured":
-                t_pair = _measure_pair_s(kernel, n, spec.k, device)
-                torch.cuda.empty_cache()
+                rows = search(kernel, n, spec.k, device)
+                if trace is not None:
+                    trace.extend(rows)
+                pick = best(rows)
+                bn, kb, t = pick.bn, pick.kb, pick.eager_s
             else:
-                t_pair = roofline_s(kernel, spec.k, n) / _pairs(kernel, spec.k)
+                choice = autotune(kernel, spec.k, n)
+                bn, kb, t = choice.bn, choice.kb, choice.roofline_s
             entries.append(CostEntry(kernel=kernel, model_bytes=int(mb),
-                                     t_pair_s=t_pair, bn=SLAB, kb=spec.k,
-                                     basis=basis))
+                                     t_pair_s=t / _pairs(kernel, spec.k),
+                                     bn=bn, kb=kb, basis=basis))
     return KernelCostTable(entries=entries, hw="h100")
 
 

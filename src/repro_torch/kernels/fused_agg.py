@@ -4,10 +4,14 @@
 
 On the card this launches the hand-written CUDA kernel ``csrc/fused_agg.cu``
 (it replaces the Pallas kernel ``src/repro/kernels/fused_agg.py:42``; the
-source says what bounds it and how it is built for that). A tensor on the
-CPU takes the plain version in ``ref.py``.
+source says what bounds it and how it is built for that) at the launch shape
+``bn`` / ``kb`` (``build.launch_shape``; None is the kernel's default,
+``build.DEFAULT_SHAPES``). A
+tensor on the CPU takes the plain version in ``ref.py``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -17,9 +21,12 @@ from repro_torch.kernels.ref import fused_agg_ref
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def fused_agg(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def fused_agg(updates: torch.Tensor, weights: torch.Tensor, *,
+              bn: Optional[int] = None, kb: Optional[int] = None
+              ) -> torch.Tensor:
     """updates: (K, N) fp32 or bf16; weights: (K,) -> (N,) in updates'
-    dtype."""
+    dtype. ``bn`` / ``kb``: elements a block owns and elements a thread."""
+    vec, threads = build.launch_shape("fused_agg", bn, kb)
     if (updates.dim() != 2 or updates.shape[0] == 0
             or weights.shape != (updates.shape[0],)):
         raise ValueError(f"fused_agg takes (K, N) updates and (K,) weights, "
@@ -47,7 +54,7 @@ def fused_agg(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(updates.device).cuda_stream
         err = lib.fused_agg_launch(
             updates.data_ptr(), weights.data_ptr(), out.data_ptr(), k, n,
-            DTYPES[updates.dtype], stream)
+            DTYPES[updates.dtype], vec, threads, stream)
     build.check("fused_agg", err)
     fused_agg.launches += 1
     return out

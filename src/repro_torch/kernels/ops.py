@@ -3,7 +3,12 @@
 flattened, fused leaf-wise by the kernels, and reshaped back.
 
 The device of the tensors decides the route: on the card the CUDA kernels,
-on the CPU their plain versions (the reference's ``interpret`` flag)."""
+on the CPU their plain versions (the reference's ``interpret`` flag).
+``bn`` / ``kb`` choose the kernels' launch shape, as the reference's choose
+its tile (``_tile_kwargs``): the elements a block owns and the elements a
+thread (``kernels.build.launch_shape``; None is the default;
+``kernels.autotune.autotune`` gives the searched choice). The plain
+versions ignore them."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -19,6 +24,9 @@ from repro_torch.kernels.quant_agg import quant_agg, quantize
 def fuse_updates(
     updates: Sequence[Pytree],
     weights: Optional[Sequence[float]] = None,
+    *,
+    bn: Optional[int] = None,
+    kb: Optional[int] = None,
 ) -> Pytree:
     """Weighted fusion of K model updates (FedAvg-style weighted mean when
     weights sum to 1). Leaf-wise: stacks each leaf across updates and runs
@@ -33,14 +41,14 @@ def fuse_updates(
         stack = torch.stack([l.reshape(-1) for l in leaves])  # (K, N)
         w = torch.tensor(list(weights), dtype=torch.float32,
                          device=stack.device)
-        out = fused_agg(stack, w)
+        out = fused_agg(stack, w, bn=bn, kb=kb)
         return out.reshape(leaves[0].shape).to(leaves[0].dtype)
 
     return tree_map(fuse_leaf, *updates)
 
 
-def accumulate(acc: Optional[Pytree], update: Pytree, weight: float
-               ) -> Pytree:
+def accumulate(acc: Optional[Pytree], update: Pytree, weight: float, *,
+               bn: Optional[int] = None, kb: Optional[int] = None) -> Pytree:
     """Streaming (incremental) fusion: acc + weight*update, OUT OF PLACE.
 
     This is the aggregator's inner operation: each arriving update is folded
@@ -54,6 +62,7 @@ def accumulate(acc: Optional[Pytree], update: Pytree, weight: float
     return tree_map(
         lambda a, u: pair_fuse(
             a.reshape(-1), u.reshape(-1), op="wsum", wa=1.0, wb=float(weight),
+            bn=bn, kb=kb,
         ).reshape(a.shape),
         acc,
         update,
@@ -64,6 +73,9 @@ def fuse_quantized(
     q_updates: Sequence[Pytree],
     scales: Sequence[Pytree],
     weights: Optional[Sequence[float]] = None,
+    *,
+    bn: Optional[int] = None,
+    kb: Optional[int] = None,
 ) -> Pytree:
     """Fuse int8-quantised updates (beyond-paper comm compression).
 
@@ -83,7 +95,7 @@ def fuse_quantized(
         stack = torch.stack([l[i].reshape(-1) for l in qs])  # (K, N) int8
         sc = torch.tensor([float(ss[j][i]) * weights[j] for j in range(k)],
                           dtype=torch.float32, device=stack.device)
-        fused.append(quant_agg(stack, sc).reshape(leaf.shape))
+        fused.append(quant_agg(stack, sc, bn=bn, kb=kb).reshape(leaf.shape))
     return tree_unflatten(q_updates[0], fused)
 
 

@@ -7,10 +7,14 @@ pair at a time as they arrive. f is one of mean, weighted sum, max, min.
 
 On the card this launches the hand-written CUDA kernel ``csrc/pair_fuse.cu``
 (it replaces the Pallas kernel ``src/repro/kernels/pair_fuse.py:46``; the
-source says what bounds it and how it is built for that). A tensor on the
-CPU takes the plain version in ``ref.py``.
+source says what bounds it and how it is built for that) at the launch shape
+``bn`` / ``kb`` (``build.launch_shape``; None is the kernel's default,
+``build.DEFAULT_SHAPES``). A
+tensor on the CPU takes the plain version in ``ref.py``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -22,11 +26,14 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def pair_fuse(a: torch.Tensor, b: torch.Tensor, *, op: str = "mean",
-              wa: float = 0.5, wb: float = 0.5) -> torch.Tensor:
+              wa: float = 0.5, wb: float = 0.5, bn: Optional[int] = None,
+              kb: Optional[int] = None) -> torch.Tensor:
     """o = f(a, b) elementwise over two (N,) vectors, math in fp32, output
-    in ``a``'s dtype. ``a`` and ``b`` may differ in dtype (fp32 or bf16)."""
+    in ``a``'s dtype. ``a`` and ``b`` may differ in dtype (fp32 or bf16).
+    ``bn`` / ``kb``: elements a block owns and elements a thread."""
     if op not in OPS:
         raise ValueError(op)
+    vec, threads = build.launch_shape("pair_fuse", bn, kb)
     if a.dim() != 1 or a.shape != b.shape:
         raise ValueError(f"pair_fuse takes two (N,) vectors, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
@@ -49,7 +56,8 @@ def pair_fuse(a: torch.Tensor, b: torch.Tensor, *, op: str = "mean",
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.pair_fuse_launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), n, OPS[op],
-            DTYPES[a.dtype], DTYPES[b.dtype], float(wa), float(wb), stream)
+            DTYPES[a.dtype], DTYPES[b.dtype], float(wa), float(wb), vec,
+            threads, stream)
     build.check("pair_fuse", err)
     pair_fuse.launches += 1
     return out

@@ -7,13 +7,15 @@ aggregator fuses them without writing the dequantised fp32 updates to device
 memory. On the card this launches the hand-written CUDA kernel
 ``csrc/quant_agg.cu`` (it replaces the Pallas kernel
 ``src/repro/kernels/quant_agg.py:37``; the source says what bounds it and how
-it is built for that). A tensor on the CPU takes the plain version in
-``ref.py``. ``quantize`` is the party side, plain PyTorch as the reference's
+it is built for that) at the launch shape ``bn`` / ``kb``
+(``build.launch_shape``; None is the kernel's default,
+``build.DEFAULT_SHAPES``). A tensor on the CPU
+takes the plain version in ``ref.py``. ``quantize`` is the party side, plain PyTorch as the reference's
 is plain ``jnp``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,8 +23,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import quant_agg_ref
 
 
-def quant_agg(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """q: (K, N) int8; scales: (K,) fp32 -> (N,) fp32."""
+def quant_agg(q: torch.Tensor, scales: torch.Tensor, *,
+              bn: Optional[int] = None, kb: Optional[int] = None
+              ) -> torch.Tensor:
+    """q: (K, N) int8; scales: (K,) fp32 -> (N,) fp32. ``bn`` / ``kb``:
+    elements a block owns and elements a thread."""
+    vec, threads = build.launch_shape("quant_agg", bn, kb)
     if q.dim() != 2 or q.shape[0] == 0 or scales.shape != (q.shape[0],):
         raise ValueError(f"quant_agg takes (K, N) q and (K,) scales, got "
                          f"{tuple(q.shape)} and {tuple(scales.shape)}")
@@ -45,7 +51,7 @@ def quant_agg(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.quant_agg_launch(q.data_ptr(), scales.data_ptr(),
-                                   out.data_ptr(), k, n, stream)
+                                   out.data_ptr(), k, n, vec, threads, stream)
     build.check("quant_agg", err)
     quant_agg.launches += 1
     return out
