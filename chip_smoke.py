@@ -56,14 +56,15 @@ with a non-zero exit; no phase catches its own error):
     training half and ``multijob_scheduler``;
 11. the launchers on the card, each model freed before the next: prefill
     and 128 greedy decode steps through ``launch.serve`` for qwen3-0.6b,
-    qwen2.5-14b and qwen2-moe-a2.7b at full width and full depth (bf16),
+    qwen2.5-14b and qwen2-moe-a2.7b at full width and full depth (bf16), and
+    llama4-scout-17b-a16e at full width and 4 of its 48 layers,
     each token in the vocabulary, each logit finite, the cache's ``t`` at
     prompt + tokens, peak memory under 80 GB, and a teacher-forced forward
     over the same tokens beside it; qwen3-0.6b's decode against its full
     forward in fp32 at full depth (rtol / atol 2e-2); ``launch.train.main``
     training qwen3-0.6b at full depth with AdamW, its loss falling over 5
     steps; then the card against the CPU at reduced sizes from the same
-    ``conditioned`` weights (prefill and 8 decode steps of the three
+    ``conditioned`` weights (prefill and 8 decode steps of the four
     configs, 3 train steps of qwen3-0.6b);
 12. the SSM, RG-LRU hybrid, audio and VLM families, each model freed
     before the next: ``Platform().train`` of mamba2-130m (24 of 24
@@ -84,11 +85,17 @@ with a non-zero exit; no phase catches its own error):
     B 8 x 128 train step counted on the card by ``FlopCounterMode``, which
     must equal its count on meta tensors (``launch.dryrun``); the launch-
     shape search at the cost table's sizes and qwen3-0.6b's leaf sizes
-    (default, best and bound of each; the host launch cost; rows to
-    chiprun_out/launch_shape_search.json); phase 3's times within 1.25 x
-    their bound (the cost table's rows are held to it in phase 8, by
-    device time);
-14. one JSON line with every kernel's numbers, then the result line.
+    (default, best and bound of each; the host launch cost and the fitted
+    per-block cost; rows to chiprun_out/launch_shape_search.json); phase
+    3's times within 1.25 x their bound (the cost table's rows are held to
+    it in phase 8, by device time);
+14. the benchmarks on the card (``repro_torch.benchmarks``): kernel_bench's
+    model and measured rows, checked against its H100 baseline (launch
+    shapes exactly, every measured shape within 1.25 x its bound in device
+    time); real_ablation on qwen3-0.6b at full width and depth (3 parties,
+    2 FedProx rounds of 48 sequences, every strategy replayed; JIT must
+    bill no more container-seconds than eager-AO); periodicity (Figs. 3-4);
+15. one JSON line with every kernel's numbers, then the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -132,6 +139,12 @@ RECURRENT_TRAIN = (("mamba2-130m", 24, True), ("recurrentgemma-9b", 3, False),
                    ("musicgen-large", 6, False))
 RECURRENT_SERVES = (("mamba2-130m", 24, 8), ("recurrentgemma-9b", 38, 4),
                     ("musicgen-large", 48, 4), ("llama-3.2-vision-90b", 5, 4))
+# phase 11: (config, layers kept, batch) served at full width and cut depth.
+# llama4-scout-17b-a16e holds 4.271e9 parameters at 1 layer (2.07e9 of them
+# the embedding and the unembedding) and 1.088e10 at 4, 21.75 GB in bf16;
+# every layer is a MoE block, so the cut keeps every kind of layer. PERF.md
+# gives the memory reckoning
+CUT_SERVES = (("llama4-scout-17b-a16e", 4, 4),)
 CARD_BYTES = 80e9
 # a kernel's device time over its bound, at most: phase 3's times and the
 # cost table's rows (PERF.md section 2)
@@ -246,6 +259,26 @@ def check_pair_fuse(torch, gen):
                 worst = max(worst, e)
                 del got, want, err
             del a, b
+    # the fold's entry point: many pairs of leaves (any rank, an empty one,
+    # the three dtype pairs) from one call, each the bits of its own launch
+    from repro_torch.kernels.pair_fuse import pair_fuse_many
+
+    shapes = ((RAGGED_N,), (3, 1001), (0,), (768, 33), (7,), (4, 5, 6))
+    pairs = ((f32, f32), (bf16, bf16), (f32, bf16))
+    a_list = [torch.randn(s, generator=gen, device="cuda").to(pairs[i % 3][0])
+              for i, s in enumerate(shapes)]
+    b_list = [torch.randn(s, generator=gen, device="cuda").to(pairs[i % 3][1])
+              for i, s in enumerate(shapes)]
+    outs = pair_fuse_many(a_list, b_list, op="wsum", wa=1.0, wb=0.3)
+    for a, b, got in zip(a_list, b_list, outs, strict=True):
+        one = pair_fuse(a.reshape(-1), b.reshape(-1), op="wsum", wa=1.0,
+                        wb=0.3).reshape(a.shape)
+        if got.shape != a.shape or got.dtype != a.dtype or not torch.equal(
+                got, one):
+            raise AssertionError(f"pair_fuse_many disagrees with pair_fuse "
+                                 f"at {tuple(a.shape)} {a.dtype}+{b.dtype}")
+    log(f"  pair_fuse_many over {len(shapes)} leaves of shapes {shapes}: "
+        f"each leaf the bits of its own pair_fuse launch ok")
     torch.cuda.synchronize()
     return worst
 
@@ -501,30 +534,49 @@ def fold_against_probe(torch, res, trials: int = 7) -> None:
     (``FusionState.fold``) of the last round's second update into the
     accumulator holding its first, every leaf, synchronised; the median of
     ``trials`` after 3 warmups, on the host clock. The probe
-    (``probe_t_pair``) must predict it within 25 %."""
+    (``probe_t_pair``) must predict it within 25 %. Beside it, for the
+    record: the host's part of the fold (until the call returns, before the
+    synchronisation), and the same fold made one ``pair_fuse`` call a leaf
+    from Python, as ``accumulate`` made it before ``pair_fuse_many``."""
     from repro_torch import tree_leaves
     from repro_torch.fl.fusion import FusionState, get_algorithm
+    from repro_torch.kernels.pair_fuse import pair_fuse
 
     rt = res.runtime
     _, updates, n_ex = last_round_updates(res)
     alg = get_algorithm(rt.spec.aggregation_algorithm)
+    w1 = alg.weight_of(n_ex[1])
     st = FusionState().fold(updates[0], alg.weight_of(n_ex[0]))
+    acc, upd = tree_leaves(st.acc), tree_leaves(updates[1])
 
-    def timed() -> float:
+    def leaf_by_leaf():
+        return [pair_fuse(a.reshape(-1), u.reshape(-1), op="wsum", wa=1.0,
+                          wb=float(w1)).reshape(a.shape)
+                for a, u in zip(acc, upd)]
+
+    def timed(fold) -> tuple:
         t0 = time.perf_counter()
-        st.fold(updates[1], alg.weight_of(n_ex[1]))
+        fold()
+        t1 = time.perf_counter()
         torch.cuda.synchronize()
-        return time.perf_counter() - t0
+        return time.perf_counter() - t0, t1 - t0
 
-    for _ in range(3):  # warmup
-        timed()
-    fold = statistics.median(timed() for _ in range(trials))
+    def median_of(fold) -> tuple:
+        for _ in range(3):  # warmup
+            timed(fold)
+        runs = [timed(fold) for _ in range(trials)]
+        return tuple(statistics.median(r[i] for r in runs) for i in (0, 1))
+
+    fold, host = median_of(lambda: st.fold(updates[1], w1))
     ratio = fold / rt.t_pair0
-    log(f"  one real fold ({len(tree_leaves(updates[1]))} leaves, host "
-        f"clock, synchronised): {fold * 1e3:.4f} ms; t_pair probe "
-        f"{rt.t_pair0 * 1e3:.4f} ms; fold / probe {ratio:.4f}")
+    log(f"  one real fold ({len(upd)} leaves, host clock, synchronised): "
+        f"{fold * 1e3:.4f} ms (the host's part {host * 1e3:.4f} ms); t_pair "
+        f"probe {rt.t_pair0 * 1e3:.4f} ms; fold / probe {ratio:.4f}")
     if abs(ratio - 1.0) > 0.25:
         raise AssertionError("the t_pair probe does not predict the fold")
+    fold_1, host_1 = median_of(leaf_by_leaf)
+    log(f"  the same fold one pair_fuse call a leaf: {fold_1 * 1e3:.4f} ms "
+        f"(the host's part {host_1 * 1e3:.4f} ms)")
 
 
 def conditioned(torch, tree, gen):
@@ -1149,13 +1201,53 @@ def teacher_forced(torch, cfg, params, prompt, gen, image_embeds=None):
     return out
 
 
-def agreement(torch, cfg, params, prompt, out, image_embeds=None
-              ) -> tuple[float, float]:
-    """(share of ``out``'s greedy tokens that a teacher-forced forward over
-    the same tokens also picks, largest gap between their logits)."""
+def agreement(torch, cfg, params, prompt, out, image_embeds=None) -> dict:
+    """``share``: of ``out``'s greedy tokens, those a teacher-forced forward
+    over the same tokens also picks; ``by_pos``: each position's largest
+    gap between their logits (B, n); ``gap`` and ``median``: its largest
+    and median; ``scale``: the forward's largest |logit| where the gap is
+    largest."""
     tf = teacher_forced(torch, cfg, params, prompt, out.tokens, image_embeds)
     share = float((tf.argmax(-1) == out.tokens).float().mean())
-    return share, float((tf - out.logits).abs().max())
+    by_pos = (tf - out.logits).abs().flatten(2).amax(-1)
+    worst = int(by_pos.argmax())
+    return {"share": share, "by_pos": by_pos, "gap": float(by_pos.max()),
+            "median": float(by_pos.median()),
+            "scale": float(tf.flatten(0, 1)[worst].abs().max())}
+
+
+def recorded_routes():
+    """Patch ``moe._route`` so that every call appends its top-k experts
+    (B, S, k) to a list; returns (the list, the undo)."""
+    from repro_torch.models import moe
+
+    calls: list = []
+    route = moe._route
+
+    def recording(cfg, router, x):
+        out = route(cfg, router, x)
+        calls.append(out[2])
+        return out
+
+    moe._route = recording
+    return calls, lambda: setattr(moe, "_route", route)
+
+
+def routing_flips(torch, dec, fwd, layers: int):
+    """(B, n) bool: the positions at which some layer's router sends the
+    token to other experts in the decode than in the teacher-forced
+    forward. ``dec`` holds the prefill's ``layers`` router calls, then
+    ``layers`` a decode step; ``fwd`` the forward's ``layers`` calls.
+    Position j predicts after PROMPT + j tokens, as ``agreement``'s."""
+    steps = (len(dec) - layers) // layers
+    flips = None
+    for i in range(layers):
+        d = torch.cat([dec[i][:, -1:]] + [dec[layers * (1 + j) + i]
+                                          for j in range(steps)], dim=1)
+        f = fwd[i][:, PROMPT - 1:PROMPT + steps]
+        diff = (d.sort(-1).values != f.sort(-1).values).any(-1)
+        flips = diff if flips is None else flips | diff
+    return flips
 
 
 def serve_full(torch, name: str, batch: int, card: str,
@@ -1181,7 +1273,9 @@ def serve_full(torch, name: str, batch: int, card: str,
     MoE's capacity grows with the sequence (``models/moe.py``), so its
     prefill, its one-token decode and the longer forward drop different
     tokens; the conditioned comparison gives it a capacity factor at which
-    no expert drops a token."""
+    no expert drops a token, and counts the positions at which a router
+    still sends a token to other experts in the decode than in the
+    forward (``routing_flips``)."""
     from repro_torch import configs, tree_leaves
     from repro_torch.launch import serve
     from repro_torch.launch.roofline import bandwidth_time_s
@@ -1217,7 +1311,8 @@ def serve_full(torch, name: str, batch: int, card: str,
     ms = statistics.median(steady) * 1e3
     bound = bandwidth_time_s(p_bytes + kv_bytes) * 1e3
     out.cache = None
-    agree, gap = agreement(torch, cfg, params, prompt, out, img)
+    a = agreement(torch, cfg, params, prompt, out, img)
+    agree, gap, med, scale = a["share"], a["gap"], a["median"], a["scale"]
     row = {"config": name, "layers": cfg.num_layers, "batch": batch,
            "prompt": PROMPT, "tokens": TOKENS,
            "prefill_ms": out.prefill_s * 1e3, "decode_ms": ms,
@@ -1226,7 +1321,8 @@ def serve_full(torch, name: str, batch: int, card: str,
            "tokens_per_s": batch * 1e3 / ms,
            "decode_bound_ms": bound, "peak_gib": peak / 2**30,
            "kv_cache_gb": kv_bytes / 1e9, "params_gb": p_bytes / 1e9,
-           "greedy_agree": agree, "max_logit_gap": gap}
+           "greedy_agree": agree, "max_logit_gap": gap,
+           "median_logit_gap": med}
     log(f"  serve {name} ({cfg.num_layers} layers, B {batch}, prompt "
         f"{PROMPT}, {TOKENS} tokens; {card}): prefill {row['prefill_ms']:.3f}"
         f" ms, decode {ms:.4f} ms per token (median of steps 9-{TOKENS}, "
@@ -1236,7 +1332,8 @@ def serve_full(torch, name: str, batch: int, card: str,
         f"{kv_bytes / 1e9:.3f} GB of cache at 3.35 TB/s); peak "
         f"{row['peak_gib']:.2f} GiB; t={t}; greedy tokens the teacher-forced"
         f" forward also picks {100 * agree:.2f} %, largest logit gap "
-        f"{gap:.4e}; first row {gen[0].flatten()[:8].tolist()}")
+        f"{gap:.4e} (median over positions {med:.4e}; largest |logit| "
+        f"there {scale:.4e}); first row {gen[0].flatten()[:8].tolist()}")
     if not (out.finite and in_vocab and t == PROMPT + TOKENS
             and tuple(gen.shape[:2]) == (batch, TOKENS + 1)
             and peak < CARD_BYTES):
@@ -1248,15 +1345,34 @@ def serve_full(torch, name: str, batch: int, card: str,
         if cfg.num_experts:  # a capacity of S slots an expert drops nothing
             cfg = dataclasses.replace(
                 cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
-        out = serve.generate(cfg, params, prompt, TOKENS, PROMPT + TOKENS,
-                             image_embeds=img, keep_logits=True)
-        out.cache = None
-        agree, gap = agreement(torch, cfg, params, prompt, out, img)
-        row["conditioned_greedy_agree"] = agree
-        row["conditioned_max_logit_gap"] = gap
+        calls, undo = recorded_routes()
+        try:
+            out = serve.generate(cfg, params, prompt, TOKENS, PROMPT + TOKENS,
+                                 image_embeds=img, keep_logits=True)
+            out.cache = None
+            n_dec = len(calls)
+            a = agreement(torch, cfg, params, prompt, out, img)
+        finally:
+            undo()
+        row["conditioned_greedy_agree"] = a["share"]
+        row["conditioned_max_logit_gap"] = a["gap"]
+        row["conditioned_median_logit_gap"] = a["median"]
         log(f"  from conditioned weights: greedy tokens the teacher-forced "
-            f"forward also picks {100 * agree:.2f} %, largest logit gap "
-            f"{gap:.4e}; all finite: {out.finite}")
+            f"forward also picks {100 * a['share']:.2f} %, largest logit gap "
+            f"{a['gap']:.4e} (median over positions {a['median']:.4e}; "
+            f"largest |logit| there {a['scale']:.4e}); all finite: "
+            f"{out.finite}")
+        if cfg.num_experts:
+            flips = routing_flips(torch, calls[:n_dec], calls[n_dec:],
+                                  cfg.num_layers)
+            rest = a["by_pos"][~flips]
+            row["conditioned_routing_flips"] = int(flips.sum())
+            log(f"  routing: at {int(flips.sum())} of {flips.numel()} "
+                f"positions some layer sends the token to other experts in "
+                f"the decode than in the forward; the largest logit gap at "
+                f"the "
+                f"{rest.numel()} others {float(rest.max()):.4e}")
+        del calls
     del params, prompt, out
     return row
 
@@ -1464,7 +1580,8 @@ def decode_card_vs_cpu(torch, cfg) -> float:
 def launchers_card_vs_cpu(torch) -> None:
     """The card against the CPU at reduced sizes (2 layers, d_model 64,
     vocab 128, fp32) from the same ``conditioned`` weights: ``decode_card_
-    vs_cpu`` for qwen3-0.6b, qwen2.5-14b and qwen2-moe-a2.7b; and 3
+    vs_cpu`` for qwen3-0.6b, qwen2.5-14b, qwen2-moe-a2.7b and
+    llama4-scout-17b-a16e; and 3
     ``make_train_step`` steps (AdamW) of qwen3-0.6b, losses within rtol
     1e-4."""
     from repro_torch import configs, tree_map
@@ -1476,7 +1593,8 @@ def launchers_card_vs_cpu(torch) -> None:
         return configs.get_config(name).reduced(
             num_layers=2, d_model=64, vocab_size=128, dtype="float32")
 
-    for name in ("qwen3-0.6b", "qwen2.5-14b", "qwen2-moe-a2.7b"):
+    for name in ("qwen3-0.6b", "qwen2.5-14b", "qwen2-moe-a2.7b",
+                 "llama4-scout-17b-a16e"):
         decode_card_vs_cpu(torch, reduced(name))
 
     cfg = reduced("qwen3-0.6b")
@@ -1512,6 +1630,8 @@ def launchers(torch, card: str) -> None:
 
     pair_fuse.launches = fused_agg.launches = quant_agg.launches = 0
     rows = [serve_full(torch, name, batch, card) for name, batch in SERVES]
+    rows += [serve_full(torch, name, batch, card, layers)
+             for name, layers, batch in CUT_SERVES]
     prof = decode_profile(torch, card)
     gap = decode_matches_forward(torch)
     tr = train_full(torch)
@@ -1720,7 +1840,8 @@ def launch_shape_search(torch, card: str, table_rows) -> dict:
     log(f"  host launch cost {over['launch_host_s'] * 1e6:.3f} us a call "
         f"(host clock); one smallest-block launch {over['launch_device_s'] * 1e6:.3f}"
         f" us of device time (CUDA graph); per-block allowance fitted "
-        f"{block_s * 1e9:.4f} ns ({card})")
+        f"{block_s * 1e9:.4f} ns, floored at 0: {max(0.0, block_s) * 1e9:.4f}"
+        f" ns (autotune.BLOCK_S {autotune.BLOCK_S * 1e9:.4f} ns; {card})")
     log("  kernel,n,K,update_bytes,default bn/kb,default eager_ms,"
         "default graph_ms,best bn/kb,best eager_ms,best graph_ms "
         "(spread),bound_ms,best graph/bound,best eager/bound,"
@@ -1763,6 +1884,93 @@ def launch_shape_search(torch, card: str, table_rows) -> dict:
     return {"overheads": over, "block_s": block_s, "rows": summary}
 
 
+# --------------------------------------------------------------------------
+# phase 14: the benchmarks on the card
+# --------------------------------------------------------------------------
+def benchmarks_on_card(torch, card: str) -> dict:
+    """``repro_torch.benchmarks`` on the card, each timed on the host clock
+    (synchronised) with its kernel launches counted: kernel_bench's model
+    and measured rows with ``--check`` against ``kernel_baseline_h100.json``
+    (the rows to chiprun_out/kernel_bench.json); real_ablation on
+    qwen3-0.6b at full width and depth from its seeded weights, 3 parties,
+    2 rounds of 48 sequences (the reference's default, example-100m,
+    diverges from round 0 at its settings: ROADMAP Queue 3), which must
+    fold through pair_fuse and in which JIT must bill no more
+    container-seconds than eager-AO; periodicity at the reference's sizes.
+    Returns each one's seconds, launches and results."""
+    from repro_torch import configs
+    from repro_torch.benchmarks import kernel_bench, periodicity, real_ablation
+    from repro_torch.core import STRATEGIES
+    from repro_torch.kernels.fused_agg import fused_agg
+    from repro_torch.kernels.pair_fuse import pair_fuse
+    from repro_torch.kernels.quant_agg import quant_agg
+    from repro_torch.models import model as M
+
+    out = Path(__file__).resolve().parent / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    summary: dict = {"card": card}
+
+    def counted(name, fn):
+        free(torch)
+        pair_fuse.launches = fused_agg.launches = quant_agg.launches = 0
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {"pair_fuse": pair_fuse.launches,
+                    "fused_agg": fused_agg.launches,
+                    "quant_agg": quant_agg.launches}
+        summary[name] = {"seconds": secs, "launches": launches,
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"  {name}: {secs:.3f} s (host clock, synchronised); kernel "
+            f"launches {launches}; peak device memory "
+            f"{summary[name]['peak_gib']:.2f} GiB")
+        return result
+
+    log(f"  kernel_bench (device time: CUDA-graph replays; bound: bytes "
+        f"over 3.35 TB/s; {card}):")
+    model, measured, sp = counted("kernel_bench", lambda: kernel_bench.main(
+        ["--check", str(kernel_bench.BASELINE),
+         "--out", str(out / "kernel_bench.json")]))
+    summary["kernel_bench"].update(measured=measured, speedups=sp)
+
+    cfg = configs.get_config("qwen3-0.6b")
+    spec = real_ablation.build_spec(cfg, 3, 2, 8)
+    log(f"  real_ablation: {cfg.name} at full width and depth "
+        f"({M.n_params(cfg):,} params, {cfg.dtype}), seeded weights (seed "
+        f"0), 3 heterogeneous parties, 2 FedProx rounds (mu "
+        f"{spec.prox_mu}, lr {spec.lr}, batch 8) of 48 sequences, 32 eval "
+        f"sequences; pricing t_pair 3 x {spec.model_bytes:,} B / 10 GB/s; "
+        f"{len(STRATEGIES)} strategies replayed ({card}; virtual clock)")
+    log(f"  {real_ablation.HEADER}")
+    res, rows = counted("real_ablation", lambda: real_ablation.run(
+        cfg, rounds=2, sequences=48, parties=3))
+    jit, ao = (next(m for m in rows if m.strategy == s)
+               for s in ("jit", "eager_ao"))
+    log(f"  real_ablation: eval loss by round "
+        f"{[r.global_loss for r in res.records]}; pricing t_pair "
+        f"{res.runtime.t_pair0 * 1e3:.4f} ms; JIT {jit.container_seconds:.4f}"
+        f" vs eager-AO {ao.container_seconds:.4f} container-s")
+    summary["real_ablation"].update(rows={
+        m.strategy: {"rounds": m.rounds_done, "mean_latency_s": m.mean_latency,
+                     "p95_latency_s": m.p95_latency,
+                     "container_seconds": m.container_seconds}
+        for m in rows})
+    if summary["real_ablation"]["launches"]["pair_fuse"] <= 0:
+        raise AssertionError("real_ablation never launched pair_fuse")
+    if not real_ablation.jit_within_always_on(rows):
+        raise AssertionError(f"real_ablation: JIT billed "
+                             f"{jit.container_seconds} > eager-AO "
+                             f"{ao.container_seconds}")
+    del res
+
+    log(f"  periodicity ({card}):")
+    per = counted("periodicity", lambda: periodicity.main([]))
+    summary["periodicity"].update(per)
+    log("  phase 14 summary: " + json.dumps(summary))
+    return summary
+
+
 def kernel_limit(kernels: list) -> None:
     """Phase 3's times (device-bound launches at the main path's largest
     leaf) at most KERNEL_LIMIT x their bound."""
@@ -1777,6 +1985,7 @@ def kernel_limit(kernels: list) -> None:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1892,7 +2101,11 @@ def main() -> int:
         {"card": smi, "roofline": rows13, "flops": flops13,
          "search": search13}))
 
-    # 14. the record
+    # 14. the benchmarks on the card
+    log(f"phase 14: the benchmarks on the card ({smi})")
+    benchmarks_on_card(torch, smi)
+
+    # 15. the record
     kernels = [
         {"name": "pair_fuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pair_fuse.cu",
@@ -1908,6 +2121,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/quant_agg.py:37",
          "launches": quant_launches, "max_abs_err": err_qa, **t_qa},
     ]
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all (host "
+        f"clock, the build included; {smi})")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,19 +57,16 @@ def probe_t_pair(leaf_sizes: Sequence[int], update_dtype: torch.dtype,
     update in ``update_dtype``, with leaves of ``leaf_sizes`` elements, into
     an fp32 accumulator of the same leaves, already on ``device``, after
     3 untimed folds, with the device synchronised inside each timed
-    call. A small model's fold is bound by the host's launches, which the
-    card's host shares with other work: over 3 folds the median of
-    mamba2-130m's probe read 1.0288 ms against a real fold of 0.7214 ms
-    (0.70; chip_smoke.py phase 12 on an NVIDIA H100 80GB HBM3 at 700 W),
-    hence 7 after 3. The fold
-    is the aggregator's own (``kernels.ops.accumulate``: one ``pair_fuse``
-    wsum a leaf), and the runtime passes the global model's leaf sizes and
-    dtype, so the probe pays what a real fold pays for each leaf as well as
-    for each byte: on the card a small model's fold is bound by its
-    launches. On the card the probe is the full model; the CPU probes at
-    most ``CPU_PROBE_CAP`` bytes of accumulator, every leaf cut by the same
-    factor, and scales the time by the elements left out (fusion is linear
-    in bytes)."""
+    call. The fold is the aggregator's own (``kernels.ops.accumulate``: one
+    ``pair_fuse`` wsum launch a leaf, all made from one C call, so that a
+    small model's fold is bound by the card and not by the shared host's
+    speed, which drifts between this probe and the folds it predicts;
+    PERF.md section 6), and the runtime passes the global model's leaf
+    sizes and dtype, so the probe pays what a real fold pays for each leaf
+    as well as for each byte. On the card the probe is the full model; the
+    CPU probes at most ``CPU_PROBE_CAP`` bytes of accumulator, every leaf
+    cut by the same factor, and scales the time by the elements left out
+    (fusion is linear in bytes)."""
     total = max(sum(leaf_sizes), 1)
     cap = total if device.type == "cuda" else CPU_PROBE_CAP // 4
     sizes = [max(1, n * min(cap, total) // total) for n in leaf_sizes]

@@ -65,14 +65,16 @@ from repro_torch.launch.roofline import bandwidth_time_s
 LEGAL_SPANS = (8, 16, 32, 64)
 #: modeled per-block cost (``fit_block_s`` over the search's rows) and
 #: per-launch host cost (``measure_overheads``), both measured by
-#: chip_smoke.py phase 13 on an NVIDIA H100 80GB HBM3 at 700 W: -0.074 and
-#: -0.089 ns a block, 17.9 and 36.6 us a launch, in two runs (the host is
-#: shared with other work). The per-block allowance is slightly negative
-#: and within the runs' spread: at fixed bytes and elements a thread, the
-#: block size barely moves a launch, so the closed-form choice is the
-#: smallest legal block; what a thread moves (4, 8 or 16 elements) moves
-#: it more, which only the measured search sees.
-BLOCK_S = -7.44e-11
+#: chip_smoke.py phase 13 on an NVIDIA H100 80GB HBM3 at 700 W: the
+#: per-block fit read -0.074, -0.089 and -0.10 ns a block in three runs,
+#: each within the runs' spread, and 17.9 and 36.6 us a launch in two (the
+#: host is shared with other work). The per-block cost is floored at 0: a
+#: negative one would score more blocks faster and pick the smallest legal
+#: block, which the measured search never keeps from 29 M elements up. At
+#: 0 every legal shape moves the same bytes and scores the same, so the
+#: closed-form choice is the default shape; what a thread moves (4, 8 or
+#: 16 elements) matters more, which only the measured search sees.
+BLOCK_S = 0.0
 LAUNCH_S = 17.86e-6
 #: timed launches per measurement, after WARMUP untimed ones
 ITERS = 10

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch import Pytree, tree_leaves, tree_map, tree_unflatten
 from repro_torch.kernels.fused_agg import fused_agg
-from repro_torch.kernels.pair_fuse import pair_fuse
+from repro_torch.kernels.pair_fuse import pair_fuse_many
 from repro_torch.kernels.quant_agg import quant_agg, quantize
 
 
@@ -52,21 +52,19 @@ def accumulate(acc: Optional[Pytree], update: Pytree, weight: float, *,
     """Streaming (incremental) fusion: acc + weight*update, OUT OF PLACE.
 
     This is the aggregator's inner operation: each arriving update is folded
-    into the running fp32 accumulator with the pair_fuse kernel, so
+    into the running fp32 accumulator with the pair_fuse kernel, one
+    launch a leaf and all of them from one call (``pair_fuse_many``), so
     aggregation state is one model-sized buffer regardless of K. A new
     accumulator is returned because a checkpointed partial aggregate holds
     the old one by reference. The kernel reads a bf16 update directly; the
     sum is the one the fp32 copy of the update would give."""
     if acc is None:
         return tree_map(lambda u: u.to(torch.float32) * weight, update)
-    return tree_map(
-        lambda a, u: pair_fuse(
-            a.reshape(-1), u.reshape(-1), op="wsum", wa=1.0, wb=float(weight),
-            bn=bn, kb=kb,
-        ).reshape(a.shape),
-        acc,
-        update,
-    )
+    pairs = []
+    tree_map(lambda a, u: pairs.append((a, u)), acc, update)
+    return tree_unflatten(acc, pair_fuse_many(
+        [a for a, _ in pairs], [u for _, u in pairs], op="wsum", wa=1.0,
+        wb=float(weight), bn=bn, kb=kb))
 
 
 def fuse_quantized(

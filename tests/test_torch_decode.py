@@ -215,7 +215,7 @@ def _model_cfgs(name):
     """(jcfg, cfg) for a reduced config; the ``lattn`` case is qwen3-0.6b
     with an ("attn", "lattn") pattern and a window of 8, built by
     ``dataclasses.replace`` on both sides."""
-    if name in ("qwen2.5-14b", "qwen2-moe-a2.7b"):
+    if name in ("qwen2.5-14b", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e"):
         return _cfgs(name)
     kw = dict(num_layers=2, d_model=64, vocab_size=128, dtype="float32")
     jcfg = jconfigs.get_config("qwen3-0.6b").reduced(**kw)
@@ -238,7 +238,8 @@ def _model_setup(name):
     return jcfg, cfg, jp, tp
 
 
-MODELS = ["qwen3-0.6b", "qwen2.5-14b", "qwen2-moe-a2.7b", "lattn"]
+MODELS = ["qwen3-0.6b", "qwen2.5-14b", "qwen2-moe-a2.7b",
+          "llama4-scout-17b-a16e", "lattn"]
 
 
 @pytest.mark.parametrize("name", MODELS)

@@ -88,13 +88,14 @@ def test_probe_sizes_its_operands_from_the_leaves(dtype, monkeypatch):
     cfg = configs.get_config("qwen3-0.6b").reduced(
         num_layers=1, d_model=32, vocab_size=64, d_ff=64, dtype=dtype)
     calls = []
-    real = ops.pair_fuse
+    real = ops.pair_fuse_many
 
-    def spy(a, b, **kw):
-        calls.append((a.dtype, b.dtype, a.numel()))
-        return real(a, b, **kw)
+    def spy(a_list, b_list, **kw):
+        calls.extend((a.dtype, b.dtype, a.numel())
+                     for a, b in zip(a_list, b_list))
+        return real(a_list, b_list, **kw)
 
-    monkeypatch.setattr(ops, "pair_fuse", spy)
+    monkeypatch.setattr(ops, "pair_fuse_many", spy)
     spec = FLJobSpec(job_id="probe", model_arch=cfg.name,
                      model_bytes=M.n_params(cfg) * 2, rounds=1, lr=0.05,
                      batch_size=8,

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch/`` nor
-``chip_smoke.py`` imports JAX or the JAX package, importing every port module
-loads neither, and the entry points run on the card unless the caller names
-another device."""
+``chip_smoke.py`` imports JAX, the JAX package or its benchmarks
+(``benchmarks/``), importing every port module loads none of them, and the
+entry points run on the card unless the caller names another device."""
 import ast
 import os
 import subprocess
@@ -14,7 +14,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _modules(path: Path):
@@ -33,6 +33,13 @@ def _port_modules():
         rel = p.relative_to(PORT.parent).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         yield ".".join(parts)
+
+
+def test_the_file_list_walks_every_subpackage():
+    packages = {p.parent for p in PORT.rglob("__init__.py")}
+    assert PORT / "benchmarks" in packages
+    assert packages == {p.parent for p in FILES if p.parent != ROOT}
+    assert PORT / "benchmarks" / "run.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -29,7 +29,7 @@ from repro.kernels.fused_agg import fused_agg as j_fused_agg
 from repro.kernels.pair_fuse import pair_fuse as j_pair_fuse
 from repro_torch.kernels import accumulate, build, fuse_updates
 from repro_torch.kernels.fused_agg import fused_agg
-from repro_torch.kernels.pair_fuse import pair_fuse
+from repro_torch.kernels.pair_fuse import pair_fuse, pair_fuse_many
 
 # one intra-op thread: the suite runs several test workers side by side
 torch.set_num_threads(1)
@@ -73,6 +73,59 @@ def _assert_wsum_close(got, want, *terms):
     ulp = 2.0 ** -23 if got.dtype == torch.float32 else BF16_ULP
     bound = ulp * sum(np.abs(t) for t in terms)
     assert np.all(np.abs(_np(got) - _np(want)) <= bound)
+
+
+@pytest.mark.parametrize("op", ["mean", "wsum", "max", "min"])
+def test_pair_fuse_many_matches_pallas(op):
+    """The fold's entry point, many pairs of leaves of any rank (an empty one
+    among them) and the three dtype pairs in one call, each leaf against the
+    Pallas kernel on the flattened pair, at the tolerances above."""
+    rng = np.random.default_rng(7)
+    shapes = [(1000,), (3, 33), (0,), (2, 5, 7), (8193,)]
+    dts = [("f32", "f32"), ("bf16", "bf16"), ("f32", "bf16")]
+    js, ts = [], []
+    for i, shape in enumerate(shapes):
+        da, db = dts[i % 3]
+        ja, ta = _pair(rng.standard_normal(shape, dtype=np.float32), da)
+        jb, tb = _pair(rng.standard_normal(shape, dtype=np.float32), db)
+        js.append((ja, jb))
+        ts.append((ta, tb))
+    got = pair_fuse_many([a for a, _ in ts], [b for _, b in ts], op=op,
+                         wa=0.3, wb=0.7)
+    assert len(got) == len(shapes)
+    for (ja, jb), (ta, tb), g in zip(js, ts, got):
+        assert g.dtype == ta.dtype and g.shape == ta.shape
+        if ta.numel() == 0:
+            continue
+        want = j_pair_fuse(ja.reshape(-1), jb.reshape(-1), op=op, wa=0.3,
+                           wb=0.7, interpret=True)
+        flat = g.reshape(-1)
+        if op == "wsum":
+            _assert_wsum_close(flat, want, 0.3 * _np(ta).reshape(-1),
+                               0.7 * _np(tb).reshape(-1))
+        else:
+            np.testing.assert_array_equal(_np(flat), _np(want))
+        # each leaf is the bits of pair_fuse on its own flattened pair
+        assert torch.equal(flat, pair_fuse(ta.reshape(-1), tb.reshape(-1),
+                                           op=op, wa=0.3, wb=0.7))
+
+
+def test_pair_fuse_many_rejects_what_it_does_not_take():
+    one = torch.ones(4)
+    assert pair_fuse_many([], []) == []
+    with pytest.raises(ValueError):
+        pair_fuse_many([one], [one, one])
+    with pytest.raises(ValueError):
+        pair_fuse_many([one, one], [one, torch.ones(5)])
+    with pytest.raises(ValueError):
+        pair_fuse_many([one], [one], op="sum")
+    with pytest.raises(ValueError):
+        pair_fuse_many([one], [one], bn=3000, kb=8)
+    meta = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="not all on"):
+        pair_fuse_many([one, meta], [one, meta])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        pair_fuse_many([meta], [meta])
 
 
 @pytest.mark.parametrize("k,n", [(3, 1000), (17, 3001)])
@@ -140,6 +193,8 @@ def test_accumulate_is_out_of_place():
 def test_cpu_calls_are_not_kernel_launches():
     p0, f0 = pair_fuse.launches, fused_agg.launches
     pair_fuse(torch.ones(5), torch.ones(5), op="wsum")
+    pair_fuse_many([torch.ones(5), torch.ones(2, 3)],
+                   [torch.ones(5), torch.ones(2, 3)], op="wsum")
     fused_agg(torch.ones(2, 5), torch.ones(2))
     assert (pair_fuse.launches, fused_agg.launches) == (p0, f0)
 
@@ -171,3 +226,4 @@ def test_sources_export_what_the_bindings_load():
         assert m, f"{name}.cu does not export {fn}"
         assert len(m.group(1).split(",")) == len(argtypes)
         assert "cudaGetLastError" in src
+

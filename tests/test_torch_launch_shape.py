@@ -127,6 +127,30 @@ def test_autotune_score_follows_the_block_allowance(monkeypatch):
                 "fused_agg")
 
 
+#: the search's large sizes: qwen3-0.6b's leaves of 29.4 M elements and
+#: more, and the cost table's rows (fp32 elements; int8 for quant_agg)
+LARGE = (29_360_128, 58_720_256, 88_080_384, 131_072_000, 155_582_464,
+         375_816_192, 524_288_000, 1_503_264_768)
+
+
+@pytest.mark.parametrize("kernel,k,usize", [
+    ("pair_fuse", 2, 4), ("pair_fuse", 2, 2), ("fused_agg", 8, 4),
+    ("fused_agg", 3, 2), ("quant_agg", 8, 1), ("quant_agg", 3, 1)])
+def test_closed_form_autotune_keeps_the_default_at_large_sizes(kernel, k,
+                                                               usize):
+    """With the module's own constants the closed form picks the default
+    shape at every large size, as the measured search keeps a shape of
+    1,024 elements a block or more there; a negative per-block cost had
+    made it pick the smallest legal block, (512, 4) for fused_agg."""
+    for n in LARGE:
+        if kernel != "quant_agg" and n > 524_288_000:
+            continue  # the int8 row only
+        got = tune.autotune(kernel, k, n, update_itemsize=usize)
+        assert (got.bn, got.kb) == build.default_tile(kernel), n
+    got = tune.autotune("fused_agg", 8, 131_072_000)
+    assert (got.bn, got.kb) != (512, 4)
+
+
 @pytest.mark.parametrize("kernel,k,n,usize,want", [
     ("pair_fuse", 2, 1000, 2, 10_000),  # fp32 acc + bf16 update -> fp32
     ("fused_agg", 3, 1000, 2, 8_012),  # bf16 rows -> bf16

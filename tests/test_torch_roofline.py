@@ -35,7 +35,8 @@ REF_HW_FROM_PORT = jmesh.HardwareSpec(
 # (config, layers or None for full depth, shape kind, batch, length): the
 # runs of chip_smoke.py phase 4 (local training, batches of 8 x 64),
 # phase 11 (train.main, 8 x 128; prefill of 1,024 and decode at 1,152
-# slots) and phase 12 (local training; prefill and decode)
+# slots, llama4-scout-17b-a16e at 4 of 48 layers) and phase 12 (local
+# training; prefill and decode)
 PHASE_RUNS = (
     ("qwen3-0.6b", None, "train", 8, 64),
     ("qwen3-0.6b", None, "train", 8, 128),
@@ -45,6 +46,8 @@ PHASE_RUNS = (
     ("qwen2.5-14b", None, "decode", 4, 1152),
     ("qwen2-moe-a2.7b", None, "prefill", 4, 1024),
     ("qwen2-moe-a2.7b", None, "decode", 4, 1152),
+    ("llama4-scout-17b-a16e", 4, "prefill", 4, 1024),
+    ("llama4-scout-17b-a16e", 4, "decode", 4, 1152),
     ("mamba2-130m", 24, "train", 8, 64),
     ("recurrentgemma-9b", 3, "train", 8, 64),
     ("musicgen-large", 6, "train", 8, 64),
