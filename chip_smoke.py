@@ -95,7 +95,18 @@ with a non-zero exit; no phase catches its own error):
     time); real_ablation on qwen3-0.6b at full width and depth (3 parties,
     2 FedProx rounds of 48 sequences, every strategy replayed; JIT must
     bill no more container-seconds than eager-AO); periodicity (Figs. 3-4);
-15. one JSON line with every kernel's numbers, then the result line.
+15. the sharding half on a one-rank NCCL group and its 1 x 1 mesh
+    (``launch.mesh.one_rank_mesh``): the expert-parallel MoE branch
+    (``models.moe._moe_apply_shard_map``) at full width against
+    ``moe_apply`` for qwen2-moe-a2.7b (60 experts) and llama4-scout-17b-
+    a16e (16 experts, sequence-parallel: its gather and reduce-scatter span
+    the one rank), x (4, 512, d_model) in bf16; ``launch.train.main
+    --profile optimized`` on reduced qwen2-moe-a2.7b for 3 steps through
+    that branch, its losses against the baseline profile's; and
+    ``benchmarks.dist_agg.measure`` of qwen3-0.6b (K = 8 fp32 updates of
+    751,632,384 parameters, 24.05 GB) through the fused_agg kernel, held
+    against its plain version, timed beside its bound (at most 1.25 x);
+16. one JSON line with every kernel's numbers, then the result line.
 
 It imports nothing of JAX or of the JAX package, and needs one card.
 """
@@ -146,6 +157,14 @@ RECURRENT_SERVES = (("mamba2-130m", 24, 8), ("recurrentgemma-9b", 38, 4),
 # gives the memory reckoning
 CUT_SERVES = (("llama4-scout-17b-a16e", 4, 4),)
 CARD_BYTES = 80e9
+# phase 15: (config, tolerance of the expert-parallel branch against
+# moe_apply, relative to the output's largest magnitude). On one rank the
+# branch computes moe_apply's sums in the same order, so it should be
+# equal; one bf16 rounding, 2**-8, is the most it may differ.
+MOE_BRANCH = (("qwen2-moe-a2.7b", 2.0 ** -8), ("llama4-scout-17b-a16e",
+                                               2.0 ** -8))
+MOE_X = (4, 512)  # (B, S) of the branch's input
+
 # a kernel's device time over its bound, at most: phase 3's times and the
 # cost table's rows (PERF.md section 2)
 KERNEL_LIMIT = 1.25
@@ -1971,6 +1990,140 @@ def benchmarks_on_card(torch, card: str) -> dict:
     return summary
 
 
+# --------------------------------------------------------------------------
+# phase 15: the sharding half on a one-rank NCCL mesh
+# --------------------------------------------------------------------------
+def moe_branch(torch, mesh, name: str, tol: float) -> dict:
+    """The expert-parallel branch on the 1 x 1 mesh against ``moe_apply``
+    on the same seeded layer (full width, bf16) and x: the output and the
+    aux loss, ``==`` or within ``tol`` of the output's largest
+    magnitude."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.spec import init_params
+
+    cfg = configs.get_config(name)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    p = init_params(gen, moe.moe_specs(cfg))
+    x = torch.randn(*MOE_X, cfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        y0, a0 = moe.moe_apply(cfg, p, x)
+        t0 = time.perf_counter()
+        y1, a1 = moe._moe_apply_shard_map(cfg, p, x, mesh, ("data",),
+                                          "model")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    gap = float((y1.float() - y0.float()).abs().max())
+    scale = float(y0.float().abs().max())
+    row = {"config": name, "experts": cfg.num_experts,
+           "d_model": cfg.d_model, "x": list(x.shape),
+           "sequence_parallel": cfg.sequence_parallel,
+           "equal": bool(torch.equal(y1, y0)), "gap": gap, "scale": scale,
+           "aux": [float(a1), float(a0)], "branch_s": wall}
+    log(f"  {name} expert-parallel branch on 1 x 1 vs moe_apply: "
+        f"{'==' if row['equal'] else 'not =='}, largest gap {gap:.3e} of "
+        f"{scale:.3e} (tolerance {tol:.3e} of it); aux {float(a1):.6f} vs "
+        f"{float(a0):.6f}; {wall * 1e3:.2f} ms (host clock, synchronised)")
+    if not (y1.shape == y0.shape and gap <= tol * scale
+            and abs(float(a1) - float(a0)) <= 1e-6 * abs(float(a0))
+            and bool(torch.isfinite(y1).all())):
+        raise AssertionError(f"{name}: the expert-parallel branch differs "
+                             f"from moe_apply: {row}")
+    del p, x, y0, y1
+    return row
+
+
+def train_profiles(torch) -> dict:
+    """``launch.train.main`` on reduced qwen2-moe-a2.7b, 3 steps, with the
+    baseline and the optimized profile: the optimized run must take the
+    expert-parallel branch and give the baseline's losses, ``==``."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import steps, train
+    from repro_torch.models import moe
+
+    real_step, real_branch = steps.make_train_step, moe._moe_apply_shard_map
+    out = {}
+    for profile in ("baseline", "optimized"):
+        losses, calls = [], []
+
+        def make_step(cfg, optimizer=None):
+            step = real_step(cfg, optimizer)
+
+            def recorded(params, opt_state, batch):
+                res = step(params, opt_state, batch)
+                losses.append(float(res[2]["loss"]))
+                return res
+
+            return recorded
+
+        def branch(*a):
+            calls.append(1)
+            return real_branch(*a)
+
+        steps.make_train_step, moe._moe_apply_shard_map = make_step, branch
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = train.main(["--arch", "qwen2-moe-a2.7b", "--reduced",
+                                 "--steps", "3", "--profile", profile])
+        finally:
+            steps.make_train_step = real_step
+            moe._moe_apply_shard_map = real_branch
+        out[profile] = {"rc": rc, "losses": losses, "branch_calls": len(calls)}
+    log(f"  train.main --reduced qwen2-moe-a2.7b, 3 steps: {out}")
+    base, opt = out["baseline"], out["optimized"]
+    if not (base["rc"] == opt["rc"] == 0 and len(base["losses"]) == 3
+            and opt["losses"] == base["losses"] and opt["branch_calls"] > 0
+            and base["branch_calls"] == 0):
+        raise AssertionError(f"train.main --profile optimized: {out}")
+    return out
+
+
+def sharding_half(torch, card: str) -> tuple:
+    """Phase 15, with its summary line. Returns the dist_agg measurement
+    (its fused_agg launches and error go into the kernels line)."""
+    from repro_torch.benchmarks import dist_agg
+    from repro_torch.kernels.fused_agg import fused_agg
+    from repro_torch.kernels.pair_fuse import pair_fuse
+    from repro_torch.kernels.quant_agg import quant_agg
+    from repro_torch.launch.mesh import one_rank_mesh
+
+    import torch.distributed as dist
+
+    free(torch)
+    with one_rank_mesh(torch.device("cuda")) as mesh:
+        log(f"  mesh {mesh} ({dist.get_backend()}, world "
+            f"{dist.get_world_size()})")
+        rows = [moe_branch(torch, mesh, name, tol) for name, tol in MOE_BRANCH]
+        free(torch)
+        profiles = train_profiles(torch)
+        free(torch)
+        pair_fuse.launches = fused_agg.launches = quant_agg.launches = 0
+        m = dist_agg.measure("qwen3-0.6b", k=8, mesh=mesh)
+        others = pair_fuse.launches + quant_agg.launches
+    free(torch)
+    log(f"  dist_agg qwen3-0.6b K={m['k']} fp32, {m['ranks']} rank "
+        f"({m['n_per_rank']:,} elements a rank): {m['ms']:.4f} ms (CUDA "
+        f"events), bound {m['bound_ms']:.4f} ms by {m['bound_by']}, "
+        f"{m['ratio']:.4f} x; plain {m['plain_ms']:.4f} ms, library "
+        f"(torch.matmul) {m['library_ms']:.4f} ms; max_abs_err "
+        f"{m['max_abs_err']:.3e}; collectives {m['collectives']}; "
+        f"fused_agg launches in the fusion {m['launches']} ({card})")
+    if m["launches"] < 1 or others:
+        raise AssertionError(f"dist_agg's fusion launched fused_agg "
+                             f"{m['launches']} times, the other kernels "
+                             f"{others}")
+    if m["ratio"] > KERNEL_LIMIT:
+        raise AssertionError(f"dist_agg fusion: {m['ratio']:.4f} x its bound")
+    log("  phase 15 summary: " + json.dumps(
+        {"card": card, "moe_branch": rows, "train": profiles,
+         "dist_agg": m}))
+    return m
+
+
 def kernel_limit(kernels: list) -> None:
     """Phase 3's times (device-bound launches at the main path's largest
     leaf) at most KERNEL_LIMIT x their bound."""
@@ -2105,7 +2258,11 @@ def main() -> int:
     log(f"phase 14: the benchmarks on the card ({smi})")
     benchmarks_on_card(torch, smi)
 
-    # 15. the record
+    # 15. the sharding half on a one-rank NCCL mesh
+    log(f"phase 15: the sharding half on a one-rank NCCL mesh ({smi})")
+    agg15 = sharding_half(torch, smi)
+
+    # 16. the record
     kernels = [
         {"name": "pair_fuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pair_fuse.cu",
@@ -2115,7 +2272,8 @@ def main() -> int:
         {"name": "fused_agg", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_agg.cu",
          "replaces": "src/repro/kernels/fused_agg.py:42",
-         "launches": batch_launches, "max_abs_err": err_fa, **t_fa},
+         "launches": batch_launches + agg15["launches"],
+         "max_abs_err": max(err_fa, agg15["max_abs_err"]), **t_fa},
         {"name": "quant_agg", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quant_agg.cu",
          "replaces": "src/repro/kernels/quant_agg.py:37",

@@ -3,16 +3,16 @@ package's order (``benchmarks/run.py``).
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run [--full]
       [--only kernels|periodicity|prediction|drift|latency|resources|
-              jit_ablation|multijob|fleet|online|hierarchical]
+              jit_ablation|multijob|fleet|online|hierarchical|dist_agg]
       [--device cpu]
 
 --full adds the 10000-party rows (slower). The kernels and periodicity
 sections run on the card unless --device names another device: with
 ``--device cpu`` the kernel section prints its model rows only and
-periodicity trains on the CPU. The other sections are simulations on a
-virtual clock and touch no device. The reference's ``dist_agg`` section
-(distributed aggregation on a 16 x 16 mesh) is left out: the port has no
-mesh yet.
+periodicity trains on the CPU. The dist_agg section prints the analytic
+rows of the reference's 16 x 16 layout, counting the collectives of the
+rank-local fusion on the same device. The other sections are simulations
+on a virtual clock and touch no device.
 """
 from __future__ import annotations
 
@@ -104,6 +104,13 @@ def main(argv=None) -> None:
         from repro_torch.benchmarks import hierarchical
 
         hierarchical.main()
+
+    if only in (None, "dist_agg"):
+        _section("distributed aggregation on the 16x16 layout (t_agg "
+                 "roofline on the H100)")
+        from repro_torch.benchmarks import dist_agg
+
+        dist_agg.main([] if device is None else ["--device", device])
 
     print(f"\n[benchmarks done in {time.time() - t0:.0f}s]")
 

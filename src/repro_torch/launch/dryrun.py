@@ -197,16 +197,16 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--only-missing", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the reference's 2 x 16 x 16 mesh (not ported)")
+                    help="the reference's 2 x 16 x 16 mesh (not ported yet)")
     ap.add_argument("--profile", default="baseline",
                     choices=["baseline", "optimized"])
     ap.add_argument("--json", help="write the result JSON to this path")
     args = ap.parse_args(argv)
     if args.multi_pod or args.profile != "baseline":
         raise NotImplementedError(
-            "--multi-pod and --profile optimized select the reference's "
-            "production mesh and its shardings, which the port does not "
-            "have yet; the dry run covers one card")
+            "--multi-pod and --profile optimized count the collectives of a "
+            "step on the reference's production mesh, which waits for the "
+            "port's slice 10 (ROADMAP Queue 1); the dry run covers one card")
 
     if args.all:
         fails = driver(args.only_missing)

@@ -1,10 +1,12 @@
-"""Step functions and their abstract inputs for every (architecture x input
-shape) combination, on one device: the trainer and the server call them.
+"""Step functions, their abstract inputs and their shardings for every
+(architecture x input shape) combination: the trainer and the server call
+them.
 
 ``build`` returns the step, its arguments as tensors on the "meta" device
 (shapes and dtypes, no storage) and the indices of the arguments the step
-consumes. The reference's ``build`` also returns a sharding for every
-argument over a device mesh; the port has no mesh yet, so there are none.
+consumes. ``shardings`` gives what the reference's ``build`` returns
+beside them: a ``NamedSharding`` for every argument over a mesh (a
+``DeviceMesh`` or a mapping of axis sizes).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch import Pytree, tree_leaves, tree_map, tree_unflatten
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.launch import sharding as shd
 from repro_torch.models import model as M
 from repro_torch.models.spec import TensorSpec, abstract_params
 from repro_torch.optim import adamw, clip_by_global_norm
@@ -58,7 +61,7 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
 
 
 # --------------------------------------------------------------------------
-# abstract inputs
+# abstract inputs and shardings
 # --------------------------------------------------------------------------
 def opt_state_specs(param_specs_tree: Pytree) -> Pytree:
     """AdamW state spec tree mirroring the params (fp32 moments)."""
@@ -94,6 +97,59 @@ def decode_capacity(cfg: ModelConfig, shape: InputShape) -> int:
     return shape.seq_len
 
 
+# decode caches: prefer sharding KV heads over the model axis (GQA archs with
+# kv < 16 fall back to sharding the cache sequence dim instead — distributed
+# softmax — so a 32k x 128 cache never sits replicated on one device)
+CACHE_RULES = dict(
+    shd.ACT_RULES,
+    kv_heads=[("model",)],
+    cache_seq=[("model",)],
+)
+
+
+def _tok_spec(cfg: ModelConfig, shape: InputShape) -> TensorSpec:
+    """The decode step's (B, 1) tokens, (B, 1, K) with K codebooks."""
+    if cfg.num_codebooks:
+        return TensorSpec((shape.global_batch, 1, cfg.num_codebooks),
+                          ("batch", None, None), dtype="int32")
+    return TensorSpec((shape.global_batch, 1), ("batch", None), dtype="int32")
+
+
+def shardings(cfg: ModelConfig, shape: InputShape, mesh,
+              profile: str = "baseline"):
+    """The reference's ``in_shardings`` of ``build``'s arguments.
+
+    profile: "baseline" = the paper-faithful initial sharding;
+             "optimized" = beyond-paper perf profile (§Perf): pure-TP params
+             for decode (no per-step FSDP all-gathers)."""
+    if profile not in ("baseline", "optimized"):
+        raise ValueError(f"unknown profile {profile!r}")
+    pspecs = M.param_specs(cfg)
+    prules = shd.PARAM_RULES
+    if profile == "optimized" and shape.kind == "decode":
+        prules = shd.DECODE_PARAM_RULES
+    p_sh = shd.tree_shardings(pspecs, mesh, prules)
+
+    def act_shard(spec_tree):
+        return shd.tree_shardings(spec_tree, mesh, CACHE_RULES)
+
+    if shape.kind == "train":
+        return (p_sh,
+                {"step": shd.NamedSharding(mesh, ()),
+                 "m": shd.like_tree(p_sh, pspecs),
+                 "v": shd.like_tree(p_sh, pspecs)},
+                act_shard(batch_specs(cfg, shape)))
+    if shape.kind == "prefill":
+        bspecs = batch_specs(cfg, shape)
+        out = [p_sh, act_shard(bspecs["tokens"])]
+        if cfg.num_image_tokens:
+            out.append(act_shard(bspecs["image_embeds"]))
+        return tuple(out)
+    cspecs = M.cache_specs(cfg, shape.global_batch,
+                           decode_capacity(cfg, shape))
+    return p_sh, act_shard(cspecs), act_shard(_tok_spec(cfg, shape))
+
+
 def build(cfg: ModelConfig, shape: InputShape):
     """Returns (fn, args_abstract, donate_argnums): the step for the
     shape's kind, its arguments on the "meta" device, and the arguments it
@@ -117,11 +173,6 @@ def build(cfg: ModelConfig, shape: InputShape):
     # decode
     cap = decode_capacity(cfg, shape)
     cspecs = M.cache_specs(cfg, shape.global_batch, cap)
-    if cfg.num_codebooks:
-        tok_spec = TensorSpec((shape.global_batch, 1, cfg.num_codebooks),
-                              ("batch", None, None), dtype="int32")
-    else:
-        tok_spec = TensorSpec((shape.global_batch, 1), ("batch", None),
-                              dtype="int32")
-    args = (p_abs, abstract_params(cspecs), abstract_params(tok_spec))
+    args = (p_abs, abstract_params(cspecs),
+            abstract_params(_tok_spec(cfg, shape)))
     return make_decode_step(cfg), args, (1,)

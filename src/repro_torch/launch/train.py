@@ -9,11 +9,21 @@ train steps on synthetic tokens.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
       --steps 5 --seq-len 128 --batch 8
 
-The reference's ``--shape``, ``--profile optimized`` and ``--force-host``
-select its production mesh of 512 chips; the port has no mesh yet, and
-they raise.
+  # the optimized profile: MoE layers take the expert-parallel branch on
+  # a 1 x 1 mesh, as the reference's --reduced path builds
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \
+      --reduced --steps 3 --profile optimized --device cpu
+
+``--profile optimized`` builds the reference's 1 x 1 mesh in the current
+process group, starting a one-rank group when there is none (gloo on the
+CPU, NCCL on the card) and destroying it at the end, and installs the
+activation rules with the optimized profile. The reference's ``--shape``
+and ``--force-host`` select its production mesh of 256 chips; they need a
+whole model step on DTensors over a layout-only process group, which is
+the port's slice 10 (ROADMAP Queue 1), and raise until then.
 """
 import argparse
+import contextlib
 import sys
 import time
 
@@ -22,7 +32,10 @@ import torch
 from repro_torch import configs, get_device
 from repro_torch.configs.base import InputShape
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import one_rank_mesh
+from repro_torch.launch.sharding import activation_rules
 from repro_torch.models import model as M
+from repro_torch.models.sharding_ctx import activation_sharding
 from repro_torch.models.spec import DTYPES
 from repro_torch.optim import adamw
 
@@ -32,7 +45,7 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--shape", default=None,
                     help="an INPUT_SHAPES entry for the production mesh "
-                         "(not ported)")
+                         "(not ported yet)")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config")
@@ -42,15 +55,15 @@ def main(argv=None):
                     choices=["baseline", "optimized"])
     ap.add_argument("--force-host", action="store_true",
                     help="force 512 host devices for the production mesh "
-                         "(not ported)")
+                         "(not ported yet)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.shape is not None or args.profile != "baseline" or args.force_host:
+    if args.shape is not None or args.force_host:
         raise NotImplementedError(
-            "--shape, --profile optimized and --force-host need the "
-            "production mesh and its shardings, which the port does not "
-            "have yet; run on one device with --batch and --seq-len")
+            "--shape and --force-host run a step on the production mesh of "
+            "256 chips, which waits for the port's slice 10 (ROADMAP Queue "
+            "1); run on one device with --batch and --seq-len")
 
     dev = get_device(args.device)
     cfg = configs.get_config(args.arch)
@@ -65,21 +78,29 @@ def main(argv=None):
     tok_shape = (shape.global_batch, shape.seq_len)
     if cfg.num_codebooks:
         tok_shape += (cfg.num_codebooks,)
-    for i in range(args.steps):
-        tokens = torch.randint(0, cfg.vocab_size, tok_shape, generator=gen,
-                               device=dev, dtype=torch.int32)
-        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
-        if cfg.num_image_tokens:
-            batch["image_embeds"] = torch.zeros(
-                (shape.global_batch, cfg.num_image_tokens, cfg.d_model),
-                dtype=DTYPES[cfg.dtype], device=dev)
-        t0 = time.time()
-        params, opt_state, metrics = step(params, opt_state, batch)
-        loss = float(metrics["loss"])  # waits for the step
-        print(f"step {i}: loss={loss:.4f} ({time.time()-t0:.4f}s)",
-              flush=True)
-        if loss != loss:
-            raise FloatingPointError("NaN loss")
+    with contextlib.ExitStack() as ctx:
+        if args.profile == "optimized":
+            mesh = ctx.enter_context(one_rank_mesh(dev))
+            ctx.enter_context(activation_sharding(
+                mesh, activation_rules(mesh, cfg.sequence_parallel),
+                profile=args.profile))
+        for i in range(args.steps):
+            tokens = torch.randint(0, cfg.vocab_size, tok_shape,
+                                   generator=gen, device=dev,
+                                   dtype=torch.int32)
+            batch = {"tokens": tokens,
+                     "labels": torch.roll(tokens, -1, dims=1)}
+            if cfg.num_image_tokens:
+                batch["image_embeds"] = torch.zeros(
+                    (shape.global_batch, cfg.num_image_tokens, cfg.d_model),
+                    dtype=DTYPES[cfg.dtype], device=dev)
+            t0 = time.time()
+            params, opt_state, metrics = step(params, opt_state, batch)
+            loss = float(metrics["loss"])  # waits for the step
+            print(f"step {i}: loss={loss:.4f} ({time.time()-t0:.4f}s)",
+                  flush=True)
+            if loss != loss:
+                raise FloatingPointError("NaN loss")
     print("ok")
     return 0
 

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import rms_norm, rms_norm_spec, rope
+from repro_torch.models.sharding_ctx import constrain, opt_feature
 from repro_torch.models.spec import TensorSpec
 
 Cache = Dict[str, torch.Tensor]
@@ -128,6 +129,12 @@ def self_attention(
     q, k, v = _project_qkv(cfg, p, x)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if opt_feature("kv_anchor") and x.shape[1] > 1:
+        # §Perf H3: anchor the (small, GQA) K/V sequence-replicated, so that
+        # a sequence-parallel residual gathers them once a layer and every
+        # chunk's contraction over the key axis stays on its rank
+        k = constrain(k, ("batch", None, "kv_heads", None))
+        v = constrain(v, ("batch", None, "kv_heads", None))
 
     if cache is None:
         out = chunked_causal_attn(q, k, v, positions, positions, window=window)

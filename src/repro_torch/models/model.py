@@ -14,6 +14,7 @@ from repro_torch import Pytree, get_device, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import rms_norm, rms_norm_spec
+from repro_torch.models.sharding_ctx import constrain, opt_feature
 from repro_torch.models.spec import DTYPES, TensorSpec, count_params, init_params
 
 
@@ -123,6 +124,7 @@ def forward(
     else:
         positions = torch.arange(seq, dtype=torch.int32, device=tokens.device)
     h = _embed(cfg, params, tokens)
+    h = constrain(h, ("batch", "seq", "d_model"))
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i, (pattern, reps) in enumerate(cfg.stages()):
         c_i = cache[f"stage{i}"] if cache is not None else None
@@ -132,6 +134,12 @@ def forward(
         aux_total = aux_total + aux
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = _head(cfg, params, h)
+    if opt_feature("vocab_parallel"):
+        # §Perf H4: vocab-parallel logits: keep the (B,S,V) logits sharded
+        # over the model axis instead of gathering the full head weight
+        axes = (("batch", None, None, "vocab") if logits.ndim == 4
+                else ("batch", None, "vocab"))
+        logits = constrain(logits, axes)
     if cache is not None:
         cache["t"].add_(seq)
     return logits, cache, aux_total

@@ -22,8 +22,11 @@ run to run. Empty slots, which the reference adds to token 0 times a zero
 gate, are not read. The dispatch gather's gradient is the same combine
 (``_GatherTokens``), so a training step is deterministic too.
 
-The reference's ``shard_map`` branch (experts over a mesh's model axis) is
-not ported: it needs a device mesh.
+Under the optimized profile with a mesh installed, ``moe_apply`` takes
+the expert-parallel branch, ``_moe_apply_shard_map``: the rank's part of
+the reference's ``shard_map`` (experts over the mesh's model axis, batch
+over its data axes), with ``torch.distributed.nn.functional``'s
+collectives on the mesh's groups.
 """
 from __future__ import annotations
 
@@ -35,6 +38,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_specs
+from repro_torch.models.sharding_ctx import (constrain, mesh_sizes,
+                                             moe_shard_map_ctx)
 from repro_torch.models.spec import TensorSpec
 
 
@@ -166,7 +171,14 @@ def _aux_loss(probs, idx, e: int) -> torch.Tensor:
 def moe_apply(
     cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y, aux_loss)."""
+    """x: (B, S, d) -> (y, aux_loss).
+
+    Under the optimized profile with a mesh installed, the experts are
+    split over the mesh's model axis (``_moe_apply_shard_map``)."""
+    ctx = moe_shard_map_ctx()
+    if ctx is not None:
+        return _moe_apply_shard_map(cfg, p, x, *ctx)
+
     b, s, d = x.shape
     e = cfg.num_experts
     c = capacity(cfg, s)
@@ -178,3 +190,115 @@ def moe_apply(
     if cfg.num_shared_experts:
         y = y + mlp_apply(p["shared"], x)
     return y, _aux_loss(probs, idx, e)
+
+
+class _GatherSequence(torch.autograd.Function):
+    """All-gather along the sequence (dim 1) over a group, whose gradient
+    is the reduce-scatter of the gathered gradient back onto the ranks'
+    blocks. ``torch.distributed.nn.functional.all_gather`` computes the
+    same forward, but on gloo its backward goes through scatters that
+    take the group's ranks for global ranks, and fails on a subgroup."""
+
+    @staticmethod
+    def forward(ctx, x, group, m: int):
+        import torch.distributed as dist
+
+        ctx.group, ctx.m = group, m
+        parts = [torch.empty_like(x) for _ in range(m)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        parts = [g.contiguous() for g in torch.chunk(grad, ctx.m, dim=1)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=ctx.group)
+        return out, None, None
+
+
+def _moe_apply_shard_map(cfg, p, x, mesh, batch_axes, model_axis):
+    """This rank's part of the expert-parallel MoE on a ``DeviceMesh``
+    (the reference's shard_map branch, ``src/repro/models/moe.py:146``).
+
+    ``x`` is the rank's block of the residual stream, (B / data, S, d), or
+    under ``cfg.sequence_parallel`` (B / data, S / m, d) with m the model
+    axis's size; ``y`` comes back in the same block. ``p`` holds the whole
+    layer on every rank. The rank takes its ``el = e_pad / m`` experts (the
+    experts padded with zeros to a multiple of m), its 1 / m of the shared
+    expert's hidden units (columns of ``w_gate`` and ``w_up``, rows of
+    ``w_down``) and the whole router. It routes over the full expert set,
+    builds the tables over ``e_pad`` and keeps its own ``el`` rows of them;
+    its combine adds the slots of its experts in expert order. The partial
+    outputs are summed over the model axis (reduce-scattered along the
+    sequence under ``sequence_parallel``, after the sequence was gathered
+    on entry), and the aux loss of each batch shard is averaged over the
+    batch axes.
+
+    The collectives are ``torch.distributed.nn.functional``'s (the
+    sequence's gather is ``_GatherSequence``), whose backward passes are
+    the adjoints of their forward ones: autograd gives each rank its part
+    of the gradient of the sum of the ranks' objectives, and a tensor that
+    several ranks hold whole has for its gradient the sum of theirs."""
+    import torch.distributed.nn.functional as dnn
+
+    sizes = mesh_sizes(mesh)
+    m = sizes[model_axis]
+    j = mesh.get_local_rank(model_axis)
+    group = mesh.get_group(model_axis)
+    e = cfg.num_experts
+    e_pad = -(-e // m) * m
+    el = e_pad // m
+
+    # the reference anchors x replicated over the model axis here; with a
+    # sequence-parallel residual that constraint gathers the sequence
+    x = constrain(x, ("batch", None, None))
+    if cfg.sequence_parallel:
+        x = _GatherSequence.apply(x, group, m)
+    c = capacity(cfg, x.shape[1])
+
+    def experts(w):  # this rank's rows of the zero-padded expert weights
+        w = w[j * el:min((j + 1) * el, e)]
+        if w.shape[0] < el:
+            w = F.pad(w, (0, 0, 0, 0, 0, el - w.shape[0]))
+        return w
+
+    # routing over the FULL expert set, identical on every model shard
+    probs, gate, idx = _route(cfg, p["router"], x)
+    table, gate_table, slot, keep = _dispatch_tables(gate, idx, e_pad, c,
+                                                     x.dtype)
+    # this shard's experts' rows of the tables, and its (token, choice)
+    # slots renumbered from its first slot
+    rows = slice(j * el, (j + 1) * el)
+    lo = j * el * c
+    mine = keep & (slot >= lo) & (slot < lo + el * c)
+    slot_l = torch.where(mine, slot - lo, 0)
+    xg = _gather_tokens(x, table[:, rows], slot_l, mine)
+    out = _expert_ffn(xg, experts(p["w_gate"]), experts(p["w_up"]),
+                      experts(p["w_down"]), gate_table[:, rows])
+    y = _combine(out, slot_l, mine)
+    if cfg.num_shared_experts:
+        sh = p["shared"]
+        f = sh["w_gate"].shape[1]
+        if f % m:
+            raise ValueError(f"the shared expert's {f} hidden units do not "
+                             f"divide over {m} ranks")
+        cols = slice(j * f // m, (j + 1) * f // m)
+        y = y + mlp_apply({"w_gate": sh["w_gate"][:, cols],
+                           "w_up": sh["w_up"][:, cols],
+                           "w_down": sh["w_down"][cols]}, x)
+    if cfg.sequence_parallel:
+        # combine + reshard in one collective: the residual stream is
+        # sequence-sharded over the model axis
+        parts = list(torch.chunk(y, m, dim=1))
+        y = dnn.reduce_scatter(torch.empty_like(parts[0]), parts, group=group)
+    else:
+        y = dnn.all_reduce(y, group=group)
+    # per-data-shard load-balance loss, averaged across shards (the
+    # standard GShard/Switch practice; differs from the global-batch aux
+    # by O(cross-shard covariance))
+    aux = _aux_loss(probs, idx, e)
+    for a in batch_axes:
+        aux = dnn.all_reduce(aux, group=mesh.get_group(a))
+    return y, aux / math.prod(sizes[a] for a in batch_axes)

@@ -75,5 +75,10 @@ def abstract_params(specs: Pytree) -> Pytree:
                                           device="meta"), specs)
 
 
+def axes_tree(specs: Pytree) -> Pytree:
+    """Logical-axis tuples, same structure as the params."""
+    return tree_map(lambda s: s.axes, specs)
+
+
 def count_params(specs: Pytree) -> int:
     return int(sum(math.prod(s.shape) for s in tree_leaves(specs)))

@@ -28,6 +28,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp_apply, mlp_specs, rms_norm, rms_norm_spec
+from repro_torch.models.sharding_ctx import constrain
 from repro_torch.models.spec import stack_specs
 
 
@@ -97,27 +98,27 @@ def block_apply(
         window = cfg.sliding_window if btype == "lattn" else None
         y, new_cache = attn.self_attention(cfg, p["attn"], h, positions,
                                            window=window, cache=cache, t=t)
-        x = x + y
+        x = constrain(x + y, ("batch", "seq", "d_model"))
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         if btype == "moe":
             y, aux = moe_mod.moe_apply(cfg, p["ffn"], h)
         else:
             y = mlp_apply(p["ffn"], h)
-        x = x + y
+        x = constrain(x + y, ("batch", "seq", "d_model"))
     elif btype == "xattn":
         y, new_cache = attn.cross_attention(cfg, p["xattn"], h, image_embeds,
                                             cache)
-        x = x + y
+        x = constrain(x + y, ("batch", "seq", "d_model"))
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(p["ffn"], h)
+        x = constrain(x + mlp_apply(p["ffn"], h), ("batch", "seq", "d_model"))
     elif btype == "rglru":
         y, new_cache = rglru_mod.rglru_apply(cfg, p["rglru"], h, cache=cache)
-        x = x + y
+        x = constrain(x + y, ("batch", "seq", "d_model"))
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(p["ffn"], h)
+        x = constrain(x + mlp_apply(p["ffn"], h), ("batch", "seq", "d_model"))
     elif btype == "ssm":
         y, new_cache = ssm_mod.ssm_apply(cfg, p["ssm"], h, cache=cache)
-        x = x + y
+        x = constrain(x + y, ("batch", "seq", "d_model"))
     else:
         raise ValueError(btype)
     return x, new_cache, aux

@@ -180,13 +180,16 @@ def test_launchers_raise_without_a_card_or_the_mesh(monkeypatch):
         train.main(["--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced"])
-    for argv in (["--shape", "train_4k"], ["--profile", "optimized"],
-                 ["--force-host"]):
+    for argv in (["--shape", "train_4k"], ["--force-host"]):
         with pytest.raises(NotImplementedError, match="production mesh"):
             train.main(["--reduced", "--device", "cpu", *argv])
-    for argv in (["--profile", "optimized"], ["--force-host"]):
-        with pytest.raises(NotImplementedError, match="production mesh"):
-            serve.main(["--reduced", "--device", "cpu", *argv])
+    # the optimized profile and the server's flags run, on the card unless
+    # told otherwise (test_torch_launch_profiles.py)
+    for main, argv in ((train.main, ["--profile", "optimized"]),
+                       (serve.main, ["--profile", "optimized"]),
+                       (serve.main, ["--force-host"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--reduced", *argv])
 
 
 @pytest.mark.parametrize("name", ["qwen3-0.6b", "qwen2-moe-a2.7b"])
