@@ -115,6 +115,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2124,6 +2125,117 @@ def sharding_half(torch, card: str) -> tuple:
     return m
 
 
+# phase 16: the production layout's collectives
+# --------------------------------------------------------------------------
+# (config, B, S, AdamW steps) trained through launch.train.run_on_mesh on a
+# one-rank NCCL 1 x 1 mesh, DTensor parameters, against run_one_device
+# (train.main's loop) from the same seed. On one rank every DTensor op is
+# its local op, so the losses should be equal; MESH_LOSS_RTOL allows for
+# a reduction whose order on the card varies from run to run
+MESH_TRAIN = ("qwen3-0.6b", 8, 128, 3)
+MESH_LOSS_RTOL = 1e-4
+# the dry run of the production layout, in a subprocess: a layout-only
+# process group cannot share a process with NCCL's
+DRY_ARGS = ("--arch", "qwen3-0.6b", "--shape", "train_4k", "--mesh", "16x16")
+
+
+def mesh_train(torch, device: str = "cuda", reduced: bool = False) -> dict:
+    """``run_on_mesh`` on a one-rank 1 x 1 mesh (NCCL on the card) and
+    ``run_one_device`` from the same seed: the losses, equal or within
+    MESH_LOSS_RTOL. Then one step again with its collectives counted
+    (``count=True``, the record's hook on every operator): the same first
+    loss, and no collective on one rank."""
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.mesh import one_rank_mesh
+    from repro_torch.launch.train import run_on_mesh, run_one_device
+
+    name, b, s, n = MESH_TRAIN
+    cfg = configs.get_config(name)
+    if reduced:
+        cfg = cfg.reduced()
+    shape = InputShape("phase16", s, b, "train")
+    quiet = lambda line: None  # noqa: E731
+    t0 = time.perf_counter()
+    plain = run_one_device(cfg, shape, n, device, log=quiet)
+    t_plain = time.perf_counter() - t0
+    free(torch)
+    with one_rank_mesh(torch.device(device)) as mesh:
+        t0 = time.perf_counter()
+        out = run_on_mesh(cfg, shape, mesh, steps=n, device=device, log=quiet)
+        t_mesh = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        counted = run_on_mesh(cfg, shape, mesh, steps=1, device=device,
+                              log=quiet, count=True)
+        t_counted = time.perf_counter() - t0
+    free(torch)
+    losses = [r["loss"] for r in out]
+    gap = max(abs(a - p) / abs(p) for a, p in zip(losses, plain))
+    row = {"config": cfg.name, "batch": b, "seq": s, "steps": n,
+           "mesh_losses": losses, "plain_losses": plain,
+           "equal": losses == plain, "max_rel_gap": gap,
+           "counted_loss": counted[0]["loss"],
+           "collectives": counted[0]["collectives"],
+           "mesh_s": t_mesh, "plain_s": t_plain, "counted_s": t_counted}
+    log(f"  run_on_mesh {cfg.name} B {b} x {s}, {n} AdamW steps on a 1 x 1 "
+        f"mesh, DTensor parameters: losses {losses} ({t_mesh:.1f} s); "
+        f"run_one_device: {plain} ({t_plain:.1f} s); "
+        f"{'==' if row['equal'] else 'not =='}, largest relative gap "
+        f"{gap:.3e} (tolerance {MESH_LOSS_RTOL}); one step counted: loss "
+        f"{row['counted_loss']}, collectives {row['collectives']} "
+        f"({t_counted:.1f} s; host clock, initialisation included)")
+    if not (len(losses) == n and all(math.isfinite(x) for x in losses)
+            and gap <= MESH_LOSS_RTOL
+            and abs(row["counted_loss"] - losses[0])
+            <= MESH_LOSS_RTOL * abs(losses[0])
+            and not any(row["collectives"].values())):
+        raise AssertionError(f"run_on_mesh on one rank: {row}")
+    return row
+
+
+def dry_count(card: str) -> dict:
+    """``launch.dryrun`` of qwen3-0.6b x train_4k on the 16 x 16 layout, in
+    a subprocess (the layout-only group cannot share the process with
+    NCCL's): its collective line and its time."""
+    src = Path(__file__).resolve().parent / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "dry.json"
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            *DRY_ARGS, "--json", str(path)],
+                           capture_output=True, text=True, env=env,
+                           timeout=900)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"dryrun {' '.join(DRY_ARGS)} failed:\n"
+                                 f"{r.stderr[-3000:]}")
+        out = json.loads(path.read_text())
+    line = next((ln for ln in r.stdout.splitlines()
+                 if ln.startswith("collectives(")), "")
+    log(f"  dryrun {' '.join(DRY_ARGS)}: {line}; stepped in "
+        f"{out['t_count_s']} s, {wall:.1f} s with the subprocess (host "
+        f"clock; {card})")
+    if not (out["ok"] and out["chips"] == 256 and out["mesh"] == "16x16"
+            and out["collective_bytes_per_device"] > 0
+            and all(out["collective_counts"][k] > 0
+                    for k in ("all-gather", "all-reduce"))):
+        raise AssertionError(f"dryrun on 16 x 16: {out}")
+    return {k: out[k] for k in (
+        "mesh", "chips", "collective_bytes_per_device", "collective_by_kind",
+        "collective_counts", "collective_param_gathers", "counted_flops",
+        "collective_term_s", "t_count_s")} | {"wall_s": wall}
+
+
+def layout_phase(torch, card: str) -> None:
+    """Phase 16, with its summary line."""
+    free(torch)
+    train = mesh_train(torch)
+    dry = dry_count(card)
+    log("  phase 16 summary: " + json.dumps(
+        {"card": card, "mesh_train": train, "dry_count": dry}))
+
+
 def kernel_limit(kernels: list) -> None:
     """Phase 3's times (device-bound launches at the main path's largest
     leaf) at most KERNEL_LIMIT x their bound."""
@@ -2262,7 +2374,12 @@ def main() -> int:
     log(f"phase 15: the sharding half on a one-rank NCCL mesh ({smi})")
     agg15 = sharding_half(torch, smi)
 
-    # 16. the record
+    # 16. the production layout: the --shape path on a one-rank mesh and
+    # the dry count of the 16 x 16 layout
+    log(f"phase 16: the production layout's collectives ({smi})")
+    layout_phase(torch, smi)
+
+    # 17. the record
     kernels = [
         {"name": "pair_fuse", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/pair_fuse.cu",

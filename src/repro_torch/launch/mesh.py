@@ -71,6 +71,11 @@ def _device_mesh(shape: Tuple[int, ...], names: Tuple[str, ...],
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
+    if device is None and dist.is_initialized() and \
+            dist.get_backend() == "fake":
+        from repro_torch.launch.layout import device_type
+
+        device = device_type()  # a layout-only group (launch.layout)
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -1,8 +1,10 @@
-"""Aggregates the one-card dry run's JSONs (``results/dryrun_h100/``,
-written by ``launch.dryrun``) into the roofline table (markdown) and ranks
-the hillclimb candidates.
+"""Aggregates the dry run's JSONs (``results/dryrun_h100/``, written by
+``launch.dryrun``) into the roofline table (markdown) and ranks the
+hillclimb candidates; with ``--collectives``, the production layouts'
+collectives a device a step.
 
   PYTHONPATH=src python -m repro_torch.launch.roofline_report [--mesh h100x1]
+  PYTHONPATH=src python -m repro_torch.launch.roofline_report --collectives
 
 A copy of the reference's ``launch/roofline_report.py``: ``fmt_row`` gives
 the reference's row for the same dict. The terms are one H100's.
@@ -60,6 +62,41 @@ def fmt_counted(d):
     )
 
 
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+
+
+def fmt_collectives(by_mesh):
+    """One (arch, shape)'s row of the production layouts' collectives:
+    for each mesh, bytes a device a step and the count of each kind
+    (all-gather / all-reduce / reduce-scatter / all-to-all /
+    collective-permute)."""
+    cells = []
+    for d in by_mesh:
+        if d is None or not d.get("ok"):
+            cells += ["FAILED" if d else "", ""]
+            continue
+        c = d["collective_counts"]
+        cells += [f"{d['collective_bytes_per_device']:.3e}",
+                  " / ".join(str(c[k]) for k in KINDS)]
+    d0 = next(d for d in by_mesh if d)
+    return f"| {d0['arch']} | {d0['shape']} | " + " | ".join(cells) + " |"
+
+
+def collectives_table(meshes=("16x16", "2x16x16"), profile="baseline"):
+    """The production layouts' collectives, one row an (arch, shape)."""
+    rows = {m: {(d["arch"], d["shape"]): d for d in load(m, profile)}
+            for m in meshes}
+    keys = sorted(set().union(*rows.values()),
+                  key=lambda k: (k[0], SHAPE_ORDER.index(k[1])))
+    head = " | ".join(f"{m} B/device | {m} AG / AR / RS / A2A / CP"
+                      for m in meshes)
+    print(f"| arch | shape | {head} |")
+    print("|---|---|" + "---|" * (2 * len(meshes)))
+    for k in keys:
+        print(fmt_collectives([rows[m].get(k) for m in meshes]))
+
+
 def efficiency(d):
     """Step-time lower bound = max term; 'roofline fraction' = compute term
     over the max (1.0 = perfectly compute-bound)."""
@@ -72,7 +109,16 @@ def main(argv=None):
     ap.add_argument("--mesh", default="h100x1")
     ap.add_argument("--profile", default="baseline",
                     choices=["baseline", "optimized"])
+    ap.add_argument("--collectives", action="store_true",
+                    help="the production layouts' collectives instead: "
+                         "16x16 and 2x16x16 side by side")
     args = ap.parse_args(argv)
+    if args.collectives:
+        meshes = ("16x16", "2x16x16") if args.profile == "baseline" else (
+            "16x16",)
+        print(f"### Collectives a device a step — profile {args.profile}\n")
+        collectives_table(meshes, args.profile)
+        return
     rows = load(args.mesh, args.profile)
     print(f"### Roofline table — mesh {args.mesh}, profile {args.profile} "
           f"(seconds per step; H100 terms)\n")

@@ -19,6 +19,7 @@ from repro_torch import Pytree, tree_leaves, tree_map, tree_unflatten
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch import sharding as shd
 from repro_torch.models import model as M
+from repro_torch.models.sharding_ctx import as_layout
 from repro_torch.models.spec import TensorSpec, abstract_params
 from repro_torch.optim import adamw, clip_by_global_norm
 
@@ -36,6 +37,10 @@ def make_train_step(cfg: ModelConfig, optimizer=None) -> Callable:
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         loss, metrics = M.loss_fn(cfg, tree_unflatten(params, leaves), batch)
         grads = tree_unflatten(params, list(torch.autograd.grad(loss, leaves)))
+        # on DTensors, each gradient laid out as its parameter once (a
+        # reduce-scatter or all-reduce of a partial sum), not again at
+        # every use in the clip and the update
+        grads = tree_map(as_layout, grads, params)
         grads = clip_by_global_norm(grads, 1.0)
         params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, {k: v.detach() for k, v in metrics.items()}

@@ -6,6 +6,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.sharding_ctx import contract
 from repro_torch.models.spec import TensorSpec
 
 
@@ -57,10 +58,10 @@ def mlp_specs(d_model: int, d_ff: int) -> Dict[str, TensorSpec]:
 
 
 def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
+    g = contract("...d,df->...f", x, p["w_gate"], torch.matmul)
+    u = contract("...d,df->...f", x, p["w_up"], torch.matmul)
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
-    return h @ p["w_down"]
+    return contract("...f,fd->...d", h, p["w_down"], torch.matmul)
 
 
 # --------------------------------------------------------------------------

@@ -8,13 +8,13 @@ import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import Pytree, get_device, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import rms_norm, rms_norm_spec
-from repro_torch.models.sharding_ctx import constrain, opt_feature
+from repro_torch.models.sharding_ctx import (constrain, contract, lay_out_cache,
+                                             lookup, opt_feature)
 from repro_torch.models.spec import DTYPES, TensorSpec, count_params, init_params
 
 
@@ -80,11 +80,11 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.num_codebooks:
         # tokens: (B, S, K) -> sum of per-codebook embeddings, in order
-        h = F.embedding(tokens[..., 0], params["embed"][0])
+        h = lookup(tokens[..., 0], params["embed"][0])
         for k in range(1, cfg.num_codebooks):
-            h = h + F.embedding(tokens[..., k], params["embed"][k])
+            h = h + lookup(tokens[..., k], params["embed"][k])
     else:
-        h = F.embedding(tokens, params["embed"])
+        h = lookup(tokens, params["embed"])
     if cfg.family == "hybrid":  # gemma-style embedding scaling
         # sqrt(d_model) rounded to the embedding's dtype first, as the
         # reference's jnp.asarray(..., h.dtype)
@@ -95,9 +95,10 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
 
 def _head(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
     if cfg.num_codebooks:
-        return torch.einsum("bsd,kdv->bskv", h, params["lm_head"]).to(
+        return contract("bsd,kdv->bskv", h, params["lm_head"]).to(
             torch.float32)
-    return (h @ params["lm_head"]).to(torch.float32)
+    return contract("bsd,dv->bsv", h, params["lm_head"], torch.matmul).to(
+        torch.float32)
 
 
 def forward(
@@ -158,8 +159,8 @@ def loss_fn(
     # logsumexp minus the label logit; gathering the label logit reads the
     # same value the reference's one-hot contraction sums to, without a
     # (B, S, V) one-hot
-    logz = torch.logsumexp(logits, dim=-1)
-    label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    label_logit = torch.gather(logits, -1, labels[..., None].long())
     ce = torch.mean(logz - label_logit)
     loss = ce + cfg.router_aux_weight * aux
     return loss, {"ce": ce, "aux": aux, "loss": loss}
@@ -178,7 +179,8 @@ def prefill(
     defaults to the prompt length (the dry-run decode-shape convention).
     The cache lies on the tokens' device."""
     b, s = tokens.shape[0], tokens.shape[1]
-    cache = init_cache(cfg, b, capacity or s, tokens.device)
+    cap = capacity or s
+    cache = lay_out_cache(init_cache(cfg, b, cap, tokens.device), b, cap)
     logits, cache, _ = forward(cfg, params, tokens,
                                image_embeds=image_embeds, cache=cache)
     return logits, cache

@@ -38,8 +38,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_specs
-from repro_torch.models.sharding_ctx import (constrain, mesh_sizes,
-                                             moe_shard_map_ctx)
+from repro_torch.models.sharding_ctx import (constrain, contract,
+                                             head_local, is_dtensor,
+                                             mesh_sizes, moe_shard_map_ctx)
 from repro_torch.models.spec import TensorSpec
 
 
@@ -63,7 +64,7 @@ def capacity(cfg: ModelConfig, seq: int) -> int:
 
 def _route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
     """Router probs + normalised top-k gates. x: (B,S,d)."""
-    logits = torch.einsum("bsd,de->bse", x, router).to(torch.float32)
+    logits = contract("bsd,de->bse", x, router).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)  # (B,S,E)
     k = cfg.num_experts_per_tok
     gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -107,10 +108,10 @@ def _dispatch_tables(gate, idx, e_rows: int, c: int, dtype):
 
 def _expert_ffn(xg, wg, wu, wd, gate_table):
     """(B,E,C,d) tokens through per-expert SwiGLU, gate-weighted."""
-    g = torch.einsum("becd,edf->becf", xg, wg)
-    u = torch.einsum("becd,edf->becf", xg, wu)
+    g = contract("becd,edf->becf", xg, wg)
+    u = contract("becd,edf->becf", xg, wu)
     h = F.silu(g.to(torch.float32)).to(xg.dtype) * u
-    out = torch.einsum("becf,efd->becd", h, wd)
+    out = contract("becf,efd->becd", h, wd)
     return out * gate_table[..., None]
 
 
@@ -147,6 +148,9 @@ def _combine(out, slot, keep):
     """out: (B,E,C,d) gated expert outputs; slot, keep: (B,S,k) from
     ``_slots`` -> (B,S,d): each token's kept slots summed one at a time in
     ascending expert order (a slot orders as its expert)."""
+    # on DTensors the combine reads whole slots, sequence by sequence (the
+    # partial sums over the hidden units, or the backward's, reduced)
+    out = constrain(out, ("batch", None, None, None))
     b, e, c, d = out.shape
     s, k = slot.shape[1:]
     slot, order = torch.sort(slot, dim=-1)
@@ -176,14 +180,20 @@ def moe_apply(
     Under the optimized profile with a mesh installed, the experts are
     split over the mesh's model axis (``_moe_apply_shard_map``)."""
     ctx = moe_shard_map_ctx()
-    if ctx is not None:
+    if ctx is not None and not is_dtensor(x):
         return _moe_apply_shard_map(cfg, p, x, *ctx)
+    if ctx is not None and _splits(cfg, x, *ctx):
+        return _moe_shard_map_ranks(cfg, p, x, *ctx)
 
     b, s, d = x.shape
     e = cfg.num_experts
     c = capacity(cfg, s)
     probs, gate, idx = _route(cfg, p["router"], x)
-    table, gate_table, slot, keep = _dispatch_tables(gate, idx, e, c, x.dtype)
+    # each sequence on its own: on DTensors, each rank its sequences
+    b_ = (0, None)
+    table, gate_table, slot, keep = head_local(
+        lambda g, i: _dispatch_tables(g, i, e, c, x.dtype), (), (b_, b_),
+        (b_,) * 4, gate, idx)
     xg = _gather_tokens(x, table, slot, keep)
     out = _expert_ffn(xg, p["w_gate"], p["w_up"], p["w_down"], gate_table)
     y = _combine(out, slot, keep)
@@ -220,21 +230,69 @@ class _GatherSequence(torch.autograd.Function):
 
 def _moe_apply_shard_map(cfg, p, x, mesh, batch_axes, model_axis):
     """This rank's part of the expert-parallel MoE on a ``DeviceMesh``
-    (the reference's shard_map branch, ``src/repro/models/moe.py:146``).
+    (the reference's shard_map branch, ``src/repro/models/moe.py:146``),
+    from the whole layer ``p`` on every rank: ``_moe_local`` of the rank's
+    part of it (``_rank_part``)."""
+    m = mesh_sizes(mesh)[model_axis]
+    j = mesh.get_local_rank(model_axis)
+    return _moe_local(cfg, _rank_part(cfg, p, j, m), x, mesh, batch_axes,
+                      model_axis)
+
+
+def _e_pad(cfg: ModelConfig, m: int) -> int:
+    """The experts padded with zeros to a multiple of ``m``."""
+    return -(-cfg.num_experts // m) * m
+
+
+def _shared_split(f: int, m: int) -> None:
+    """Refuse a shared expert whose ``f`` hidden units do not divide over
+    the ``m`` ranks of the model axis."""
+    if f % m:
+        raise ValueError(f"the shared expert's {f} hidden units do not "
+                         f"divide over {m} ranks")
+
+
+def _rank_part(cfg: ModelConfig, p, j: int, m: int):
+    """Rank ``j`` of ``m``'s part of the whole layer ``p``, as the
+    reference's ``in_specs`` split it: its ``el = e_pad / m`` experts (the
+    experts padded with zeros to a multiple of m), its 1 / m of the shared
+    expert's hidden units (columns of ``w_gate`` and ``w_up``, rows of
+    ``w_down``) and the whole router."""
+    e = cfg.num_experts
+    el = _e_pad(cfg, m) // m
+
+    def experts(w):  # this rank's rows of the zero-padded expert weights
+        w = w[j * el:min((j + 1) * el, e)]
+        if w.shape[0] < el:
+            w = F.pad(w, (0, 0, 0, 0, 0, el - w.shape[0]))
+        return w
+
+    out = {"router": p["router"], "w_gate": experts(p["w_gate"]),
+           "w_up": experts(p["w_up"]), "w_down": experts(p["w_down"])}
+    if cfg.num_shared_experts:
+        sh = p["shared"]
+        f = sh["w_gate"].shape[1]
+        _shared_split(f, m)
+        cols = slice(j * f // m, (j + 1) * f // m)
+        out["shared"] = {"w_gate": sh["w_gate"][:, cols],
+                         "w_up": sh["w_up"][:, cols],
+                         "w_down": sh["w_down"][cols]}
+    return out
+
+
+def _moe_local(cfg, p, x, mesh, batch_axes, model_axis):
+    """This rank's part of the expert-parallel MoE, from its part ``p`` of
+    the layer (``_rank_part``'s).
 
     ``x`` is the rank's block of the residual stream, (B / data, S, d), or
     under ``cfg.sequence_parallel`` (B / data, S / m, d) with m the model
-    axis's size; ``y`` comes back in the same block. ``p`` holds the whole
-    layer on every rank. The rank takes its ``el = e_pad / m`` experts (the
-    experts padded with zeros to a multiple of m), its 1 / m of the shared
-    expert's hidden units (columns of ``w_gate`` and ``w_up``, rows of
-    ``w_down``) and the whole router. It routes over the full expert set,
-    builds the tables over ``e_pad`` and keeps its own ``el`` rows of them;
-    its combine adds the slots of its experts in expert order. The partial
-    outputs are summed over the model axis (reduce-scattered along the
-    sequence under ``sequence_parallel``, after the sequence was gathered
-    on entry), and the aux loss of each batch shard is averaged over the
-    batch axes.
+    axis's size; ``y`` comes back in the same block. The rank routes over
+    the full expert set, builds the tables over ``e_pad`` and keeps its
+    own ``el`` rows of them; its combine adds the slots of its experts in
+    expert order. The partial outputs are summed over the model axis
+    (reduce-scattered along the sequence under ``sequence_parallel``,
+    after the sequence was gathered on entry), and the aux loss of each
+    batch shard is averaged over the batch axes.
 
     The collectives are ``torch.distributed.nn.functional``'s (the
     sequence's gather is ``_GatherSequence``), whose backward passes are
@@ -248,7 +306,7 @@ def _moe_apply_shard_map(cfg, p, x, mesh, batch_axes, model_axis):
     j = mesh.get_local_rank(model_axis)
     group = mesh.get_group(model_axis)
     e = cfg.num_experts
-    e_pad = -(-e // m) * m
+    e_pad = _e_pad(cfg, m)
     el = e_pad // m
 
     # the reference anchors x replicated over the model axis here; with a
@@ -257,12 +315,6 @@ def _moe_apply_shard_map(cfg, p, x, mesh, batch_axes, model_axis):
     if cfg.sequence_parallel:
         x = _GatherSequence.apply(x, group, m)
     c = capacity(cfg, x.shape[1])
-
-    def experts(w):  # this rank's rows of the zero-padded expert weights
-        w = w[j * el:min((j + 1) * el, e)]
-        if w.shape[0] < el:
-            w = F.pad(w, (0, 0, 0, 0, 0, el - w.shape[0]))
-        return w
 
     # routing over the FULL expert set, identical on every model shard
     probs, gate, idx = _route(cfg, p["router"], x)
@@ -275,19 +327,11 @@ def _moe_apply_shard_map(cfg, p, x, mesh, batch_axes, model_axis):
     mine = keep & (slot >= lo) & (slot < lo + el * c)
     slot_l = torch.where(mine, slot - lo, 0)
     xg = _gather_tokens(x, table[:, rows], slot_l, mine)
-    out = _expert_ffn(xg, experts(p["w_gate"]), experts(p["w_up"]),
-                      experts(p["w_down"]), gate_table[:, rows])
+    out = _expert_ffn(xg, p["w_gate"], p["w_up"], p["w_down"],
+                      gate_table[:, rows])
     y = _combine(out, slot_l, mine)
     if cfg.num_shared_experts:
-        sh = p["shared"]
-        f = sh["w_gate"].shape[1]
-        if f % m:
-            raise ValueError(f"the shared expert's {f} hidden units do not "
-                             f"divide over {m} ranks")
-        cols = slice(j * f // m, (j + 1) * f // m)
-        y = y + mlp_apply({"w_gate": sh["w_gate"][:, cols],
-                           "w_up": sh["w_up"][:, cols],
-                           "w_down": sh["w_down"][cols]}, x)
+        y = y + mlp_apply(p["shared"], x)
     if cfg.sequence_parallel:
         # combine + reshard in one collective: the residual stream is
         # sequence-sharded over the model axis
@@ -302,3 +346,67 @@ def _moe_apply_shard_map(cfg, p, x, mesh, batch_axes, model_axis):
     for a in batch_axes:
         aux = dnn.all_reduce(aux, group=mesh.get_group(a))
     return y, aux / math.prod(sizes[a] for a in batch_axes)
+
+
+def _splits(cfg, x, mesh, batch_axes, model_axis) -> bool:
+    """Whether ``x``'s batch divides over ``batch_axes`` (and, under
+    ``cfg.sequence_parallel``, its sequence over the model axis), as the
+    expert-parallel branch's blocks need. A decode step of one sequence
+    (long_500k) does not: there the DTensor step takes the baseline
+    dispatch, which computes the same function."""
+    sizes = mesh_sizes(mesh)
+    b = math.prod(sizes[a] for a in batch_axes)
+    m = sizes[model_axis] if cfg.sequence_parallel else 1
+    return x.shape[0] % b == 0 and x.shape[1] % m == 0
+
+
+def _moe_shard_map_ranks(cfg, p, x, mesh, batch_axes, model_axis):
+    """The expert-parallel branch on DTensors: ``_moe_local`` on each
+    rank's block through ``local_map``, as the reference's ``shard_map``
+    runs ``local_fn``, with its ``in_specs``: ``x`` with the batch over
+    ``batch_axes`` (and the sequence over the model axis under
+    ``cfg.sequence_parallel``, else whole there), the experts split over
+    the model axis (padded with zeros to a multiple of it), the shared
+    expert's hidden units split over it, the router whole, every weight
+    whole over the batch axes. ``y`` comes back in ``x``'s block and the
+    aux loss replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    names = list(mesh_sizes(mesh))
+    m = mesh_sizes(mesh)[model_axis]
+    rep = Replicate()
+
+    def over_model(dim):  # split over the model axis, whole elsewhere
+        return tuple(Shard(dim) if a == model_axis else rep for a in names)
+
+    x_pl = tuple(Shard(0) if a in batch_axes else
+                 Shard(1) if a == model_axis and cfg.sequence_parallel
+                 else rep for a in names)
+    pad = _e_pad(cfg, m) - cfg.num_experts
+    experts = [F.pad(p[k], (0, 0, 0, 0, 0, pad)) if pad else p[k]
+               for k in ("w_gate", "w_up", "w_down")]
+    leaves = [p["router"]] + experts
+    pls = [(rep,) * len(names)] + [over_model(0)] * 3
+    if cfg.num_shared_experts:
+        sh = p["shared"]
+        _shared_split(sh["w_gate"].shape[1], m)
+        leaves += [sh["w_gate"], sh["w_up"], sh["w_down"]]
+        pls += [over_model(1), over_model(1), over_model(0)]
+
+    def local(x_l, router, wg, wu, wd, *shared):
+        part = {"router": router, "w_gate": wg, "w_up": wu, "w_down": wd}
+        if shared:
+            part["shared"] = dict(zip(("w_gate", "w_up", "w_down"), shared))
+        return _moe_local(cfg, part, x_l, mesh, batch_axes, model_axis)
+
+    # each rank's part of the gradient: a partial sum wherever the rank
+    # holds a block whole that other ranks' sequences or experts also use
+    def grad(pl):
+        return tuple(Partial() if q == rep else q for q in pl)
+
+    return local_map(local, out_placements=(x_pl, (rep,) * len(names)),
+                     in_placements=(x_pl, *pls),
+                     in_grad_placements=(grad(x_pl), *map(grad, pls)),
+                     redistribute_inputs=True, device_mesh=mesh,
+                     )(x, *leaves)

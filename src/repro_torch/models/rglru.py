@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import causal_conv1d, conv1d_step
+from repro_torch.models.sharding_ctx import contract, head_local, write
 from repro_torch.models.spec import TensorSpec
 
 Cache = Dict[str, torch.Tensor]
@@ -47,8 +48,10 @@ def rglru_cache_specs(cfg: ModelConfig, batch: int) -> Dict[str, TensorSpec]:
 
 def _gates(cfg: ModelConfig, prm, u: torch.Tensor):
     """u: (..., r) -> (a, beta*i) in fp32."""
-    r_gate = torch.sigmoid((u @ prm["w_a"]).to(torch.float32))
-    i_gate = torch.sigmoid((u @ prm["w_i"]).to(torch.float32))
+    r_gate = torch.sigmoid(contract("...r,rq->...q", u, prm["w_a"],
+                                    torch.matmul).to(torch.float32))
+    i_gate = torch.sigmoid(contract("...r,rq->...q", u, prm["w_i"],
+                                    torch.matmul).to(torch.float32))
     log_a = -cfg.rglru_c * F.softplus(prm["Lambda"].to(torch.float32)) * r_gate
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 0.0, 1.0))
@@ -99,16 +102,17 @@ def rglru_apply(
     written in place)."""
     f32 = torch.float32
     b, s, _ = xin.shape
-    y_gate = F.gelu(xin @ prm["w_y"], approximate="tanh")  # jax.nn.gelu's
-    u_raw = xin @ prm["w_x"]
+    y_gate = F.gelu(contract("bsd,dr->bsr", xin, prm["w_y"], torch.matmul),
+                    approximate="tanh")  # jax.nn.gelu's
+    u_raw = contract("bsd,dr->bsr", xin, prm["w_x"], torch.matmul)
 
     if cache is not None and s == 1:  # decode
         u, conv_c = conv1d_step(u_raw[:, 0], cache["conv"], prm["conv"])
         a, bi = _gates(cfg, prm, u)
         h = a * cache["h"] + bi * u.to(f32)
         y = h[:, None, :].to(xin.dtype)
-        cache["h"].copy_(h)
-        cache["conv"].copy_(conv_c)
+        write(cache["h"], h)
+        write(cache["conv"], conv_c)
     else:
         u = causal_conv1d(u_raw, prm["conv"])
         a, bi = _gates(cfg, prm, u)
@@ -117,11 +121,15 @@ def rglru_apply(
             # fold the incoming state into the first element
             bx = torch.cat([bx[:, :1] + a[:, :1] * cache["h"][:, None],
                             bx[:, 1:]], dim=1)
-        _, h = _linear_scan(a, bx)
+        # each channel on its own: on DTensors, each rank its sequences
+        # and channels (the sequence whole)
+        _, h = head_local(_linear_scan, (a.shape[2],), ((0, 2), (0, 2)),
+                          ((0, 2), (0, 2)), a, bx)
         y = h.to(xin.dtype)
         if cache is not None:
             k = cfg.conv_kernel
-            cache["h"].copy_(h[:, -1, :])
-            cache["conv"].copy_(u_raw[:, s - (k - 1):, :])
+            write(cache["h"], h[:, -1, :])
+            write(cache["conv"], u_raw[:, s - (k - 1):, :])
 
-    return (y * y_gate) @ prm["w_out"], cache
+    return contract("bsr,rd->bsd", y * y_gate, prm["w_out"],
+                    torch.matmul), cache

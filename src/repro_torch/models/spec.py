@@ -42,7 +42,9 @@ def stack_specs(specs: Pytree, n: int, axis_name: str = "layers") -> Pytree:
     )
 
 
-def _init_leaf(gen: torch.Generator, s: TensorSpec) -> torch.Tensor:
+def init_leaf(gen: torch.Generator, s: TensorSpec) -> torch.Tensor:
+    """One leaf, drawn from ``gen`` on its device (``init_params``'s
+    draw)."""
     dt = DTYPES[s.dtype]
     if s.init == "zeros":
         return torch.zeros(s.shape, dtype=dt, device=gen.device)
@@ -65,7 +67,7 @@ def _init_leaf(gen: torch.Generator, s: TensorSpec) -> torch.Tensor:
 def init_params(gen: torch.Generator, specs: Pytree) -> Pytree:
     """Materialise random parameters for a spec tree on the generator's
     device, drawing the leaves in tree order from one generator."""
-    return tree_map(lambda s: _init_leaf(gen, s), specs)
+    return tree_map(lambda s: init_leaf(gen, s), specs)
 
 
 def abstract_params(specs: Pytree) -> Pytree:

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (causal_conv1d, conv1d_step, rms_norm,
                                        rms_norm_spec)
+from repro_torch.models.sharding_ctx import contract, head_local, write
 from repro_torch.models.spec import TensorSpec
 
 Cache = Dict[str, torch.Tensor]
@@ -125,49 +126,71 @@ def ssm_apply(
     b, s, _ = xin.shape
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
 
-    z = xin @ prm["w_z"]
-    xr = xin @ prm["w_x"]
-    br = xin @ prm["w_B"]
-    cr = xin @ prm["w_C"]
-    dt = (xin @ prm["w_dt"]).to(f32)
+    def proj(w):
+        return contract("bsd,de->bse", xin, w, torch.matmul)
+
+    z = proj(prm["w_z"])
+    xr = proj(prm["w_x"])
+    br = proj(prm["w_B"])
+    cr = proj(prm["w_C"])
+    dt = proj(prm["w_dt"]).to(f32)
     dt = F.softplus(dt + prm["dt_bias"].to(f32))  # (B,S,H)
     a_coef = -torch.exp(prm["A_log"].to(f32))  # (H,)
 
+    d_skip = prm["D"]
     if cache is not None and s == 1:  # decode
         xs, conv_x = conv1d_step(xr[:, 0], cache["conv_x"], prm["conv_x"])
         bs_, conv_B = conv1d_step(br[:, 0], cache["conv_B"], prm["conv_B"])
         cs_, conv_C = conv1d_step(cr[:, 0], cache["conv_C"], prm["conv_C"])
         xs, bs_, cs_ = F.silu(xs), F.silu(bs_), F.silu(cs_)
-        xh = xs.reshape(b, h, pdim).to(f32)
-        dt0 = dt[:, 0]  # (B,H)
-        dec = torch.exp(a_coef[None] * dt0)  # (B,H)
-        db = dt0[:, :, None, None] * torch.einsum("bhp,bn->bhpn", xh,
-                                                  bs_.to(f32))
-        state = dec[:, :, None, None] * cache["state"] + db
-        y = torch.einsum("bhpn,bn->bhp", state, cs_.to(f32))
-        y = y + prm["D"].to(f32)[None, :, None] * xh
-        y = y.reshape(b, 1, h * pdim).to(xin.dtype)
+
+        def step(xs, dt0, a_coef, d_skip, bs_, cs_, state0):
+            b = xs.shape[0]
+            h = dt0.shape[1]
+            xh = xs.reshape(b, h, pdim).to(f32)
+            dec = torch.exp(a_coef[None] * dt0)  # (B,H)
+            db = dt0[:, :, None, None] * torch.einsum("bhp,bn->bhpn", xh,
+                                                      bs_.to(f32))
+            state = dec[:, :, None, None] * state0 + db
+            y = torch.einsum("bhpn,bn->bhp", state, cs_.to(f32))
+            y = y + d_skip.to(f32)[None, :, None] * xh
+            return y.reshape(b, 1, h * pdim).to(xin.dtype), state
+
+        # (B,H) per head: each rank its sequences and heads
+        y, state = head_local(
+            step, (h,), ((0, 1), (0, 1), (None, 0), (None, 0), (0, None),
+                         (0, None), (0, 1)), ((0, 2), (0, 1)),
+            xs, dt[:, 0], a_coef, d_skip, bs_, cs_, cache["state"])
         for key, new in (("state", state), ("conv_x", conv_x),
                          ("conv_B", conv_B), ("conv_C", conv_C)):
-            cache[key].copy_(new)
+            write(cache[key], new)
     else:
         xs = F.silu(causal_conv1d(xr, prm["conv_x"]))
         bs_ = F.silu(causal_conv1d(br, prm["conv_B"]))
         cs_ = F.silu(causal_conv1d(cr, prm["conv_C"]))
-        xh = xs.reshape(b, s, h, pdim)
-        a = a_coef[None, None, :] * dt  # (B,S,H)
-        xdt = xh.to(f32) * dt[..., None]
-        y, final_state = _ssd_chunked(
-            xdt.to(xin.dtype), a, bs_, cs_, cfg.ssm_chunk,
-            cache["state"] if cache is not None else None)
-        y = y.to(f32) + prm["D"].to(f32)[None, None, :, None] * xh.to(f32)
-        y = y.reshape(b, s, h * pdim).to(xin.dtype)
+
+        def scan(xs, dt, a_coef, d_skip, bs_, cs_, init):
+            b, s = xs.shape[:2]
+            h = dt.shape[2]
+            xh = xs.reshape(b, s, h, pdim)
+            a = a_coef[None, None, :] * dt  # (B,S,H)
+            xdt = xh.to(f32) * dt[..., None]
+            y, final_state = _ssd_chunked(xdt.to(xin.dtype), a, bs_, cs_,
+                                          cfg.ssm_chunk, init)
+            y = y.to(f32) + d_skip.to(f32)[None, None, :, None] * xh.to(f32)
+            return y.reshape(b, s, h * pdim).to(xin.dtype), final_state
+
+        init = cache["state"] if cache is not None else None
+        y, final_state = head_local(
+            scan, (h,), ((0, 2), (0, 2), (None, 0), (None, 0), (0, None),
+                         (0, None), (0, 1) if init is not None else None),
+            ((0, 2), (0, 1)), xs, dt, a_coef, d_skip, bs_, cs_, init)
         if cache is not None:  # prefill: the state and the raw conv tails
             k = cfg.conv_kernel
-            cache["state"].copy_(final_state)
-            cache["conv_x"].copy_(xr[:, s - (k - 1):, :])
-            cache["conv_B"].copy_(br[:, s - (k - 1):, :])
-            cache["conv_C"].copy_(cr[:, s - (k - 1):, :])
+            write(cache["state"], final_state)
+            write(cache["conv_x"], xr[:, s - (k - 1):, :])
+            write(cache["conv_B"], br[:, s - (k - 1):, :])
+            write(cache["conv_C"], cr[:, s - (k - 1):, :])
 
     y = rms_norm(y * F.silu(z.to(f32)).to(y.dtype), prm["norm"], cfg.norm_eps)
-    return y @ prm["w_out"], cache
+    return contract("bse,ed->bsd", y, prm["w_out"], torch.matmul), cache

@@ -49,8 +49,10 @@ def _step0(params: Pytree) -> torch.Tensor:
 
 
 def _zeros32(params: Pytree) -> Pytree:
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    """fp32 zeros laid out as each parameter (a DTensor's as its
+    placements: each rank holds its block)."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 def sgd(lr, momentum: float = 0.0) -> Optimizer:

@@ -37,6 +37,29 @@ MOE_CASES = {
                   (2, 2)),
 }
 MOE_SHAPE = (4, 32)  # (B, S)
+# run_on_mesh's cases: reduced configs (fp32) of a dense, a MoE and an SSM
+# family, and a sequence-parallel dense one, trained TRAIN_STEPS AdamW steps
+# at TRAIN_SHAPE (B, S), the sequence-parallel one at two query chunks of
+# attention (its K/V split along the sequence: the distributed softmax)
+TRAIN_CONFIGS = {
+    "qwen3-0.6b": dict(num_layers=2, d_model=64, vocab_size=128),
+    "qwen2-moe-a2.7b": dict(num_layers=2, d_model=64, vocab_size=128,
+                            num_experts=8, num_experts_per_tok=2,
+                            num_shared_experts=2, d_ff=32),
+    "mamba2-130m": dict(num_layers=2, d_model=64, vocab_size=128,
+                        ssm_head_dim=32),
+    "qwen2.5-14b": dict(num_layers=2, d_model=64, vocab_size=128,
+                        sequence_parallel=True),
+}
+TRAIN_SHAPE = (4, 32)
+TRAIN_SHAPES = {"qwen2.5-14b": (2, 512)}
+TRAIN_STEPS = 2
+# a decode step on DTensors: a reduced fp32 config with one KV head, so
+# that on 2 x 2 the cache is split along its keys (cache_seq over the
+# model axis), after a plain prefill of (B, prompt) into cap slots
+DECODE_CONFIG = ("qwen3-0.6b", dict(num_layers=2, d_model=64,
+                                    vocab_size=128, num_kv_heads=1))
+DECODE_SHAPE = (4, 16, 24)  # (B, prompt, capacity)
 FUSE_K, FUSE_N = 3, 4 * 1000
 
 
@@ -67,6 +90,27 @@ def fuse_inputs(seed=1):
     stack = rng.standard_normal((FUSE_K, FUSE_N)).astype(np.float32)
     w = rng.random(FUSE_K).astype(np.float32)
     return stack, w / w.sum()
+
+
+def train_shape(arch):
+    """(B, S) of ``arch``'s run_on_mesh case."""
+    return TRAIN_SHAPES.get(arch, TRAIN_SHAPE)
+
+
+def train_config(arch):
+    from repro_torch import configs
+
+    configs.load_all()
+    return configs.get_config(arch).reduced(dtype="float32",
+                                            **TRAIN_CONFIGS[arch])
+
+
+def decode_config():
+    from repro_torch import configs
+
+    configs.load_all()
+    name, over = DECODE_CONFIG
+    return configs.get_config(name).reduced(dtype="float32", **over)
 
 
 def moe_config(case, dtype):
@@ -183,8 +227,54 @@ def _case_fuse(mesh):
             "global_shape": tuple(out.shape)}
 
 
+def _case_train(mesh, arch, params):
+    """``run_on_mesh``'s losses, from the whole weights ``params``
+    (numpy), each rank keeping its blocks."""
+    from repro_torch import interop
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.train import run_on_mesh
+
+    b, s = train_shape(arch)
+    out = run_on_mesh(train_config(arch), InputShape("t", s, b, "train"),
+                      mesh, steps=TRAIN_STEPS, device="cpu",
+                      params=interop.to_torch(params, "cpu"),
+                      log=lambda line: None)
+    return [r["loss"] for r in out]
+
+
+def _case_decode(mesh, params, prompt, token):
+    """A plain prefill of ``prompt`` on every rank, then one decode step of
+    ``token`` on DTensors, each rank holding its blocks of the weights and
+    of the cache: the whole logits, and the dims along which the K cache
+    (layers, B, slots, KV, D) is split over each mesh dim."""
+    import torch
+
+    from repro_torch import interop, tree_leaves
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import layout, steps
+    from repro_torch.models import model as M
+
+    cfg = decode_config()
+    b, _, cap = DECODE_SHAPE
+    p = interop.to_torch(params, "cpu")
+    _, cache = M.prefill(cfg, p, torch.from_numpy(prompt), capacity=cap)
+    p_sh, c_sh, t_sh = steps.shardings(cfg, InputShape("t", cap, b,
+                                                       "decode"), mesh)
+    dargs = (layout.distribute(p, p_sh, mesh),
+             layout.distribute(cache, c_sh, mesh),
+             layout.distribute_one(torch.from_numpy(token), t_sh, mesh))
+    (logits, _), _ = layout.run_step(
+        lambda a, c, t: M.decode_step(cfg, a, c, t), dargs, mesh, cfg,
+        record=False)
+    k = max(tree_leaves(dargs[1]), key=lambda x: x.numel())
+    return {"logits": logits.full_tensor().numpy(),
+            "k_split_dims": tuple(getattr(q, "dim", None)
+                                  for q in k.placements)}
+
+
 CASES = {"local_shard": _case_local_shard, "constrain": _case_constrain,
-         "moe": _case_moe, "fuse": _case_fuse}
+         "moe": _case_moe, "fuse": _case_fuse, "train": _case_train,
+         "decode": _case_decode}
 
 
 # --------------------------------------------------------------------------

@@ -182,7 +182,8 @@ def test_counted_on_real_tensors_equals_meta():
 
 
 def test_all_reduced_writes_forty_results(reduced, results, capsys):
-    assert dryrun.main(["--all"]) == 0
+    # the one-card rows (--all alone adds the production meshes' 80)
+    assert dryrun.main(["--all", "--mesh", "h100x1"]) == 0
     files = sorted(results.glob("*.json"))
     assert len(files) == 40
     rows = [json.loads(f.read_text()) for f in files]
@@ -205,7 +206,7 @@ def test_failed_combination_is_recorded_and_exits_nonzero(reduced, results,
     monkeypatch.setattr(dryrun, "run_one", flaky)
     monkeypatch.setattr(dryrun, "_combo_list", lambda: [
         ("mamba2-130m", "decode_32k"), ("mamba2-130m", "long_500k")])
-    assert dryrun.main(["--all"]) == 1
+    assert dryrun.main(["--all", "--mesh", "h100x1"]) == 1
     bad = json.loads((results / "mamba2-130m__decode_32k__h100x1.json"
                       ).read_text())
     assert bad["ok"] is False and "boom" in bad["error"]
@@ -215,13 +216,30 @@ def test_failed_combination_is_recorded_and_exits_nonzero(reduced, results,
     assert roofline_report.fmt_row(bad).endswith("FAILED | | | | | | |")
 
 
-@pytest.mark.parametrize("argv", [
-    ["--arch", "qwen3-0.6b", "--shape", "train_4k", "--profile", "optimized"],
-    ["--arch", "qwen3-0.6b", "--shape", "train_4k", "--multi-pod"],
+@pytest.mark.parametrize("argv, mesh, chips, profile", [
+    (["--profile", "optimized"], "16x16", 256, "optimized"),
+    (["--multi-pod"], "2x16x16", 512, "baseline"),
 ])
-def test_mesh_options_raise(argv):
-    with pytest.raises(NotImplementedError):
-        dryrun.main(argv)
+def test_mesh_options_raise(argv, mesh, chips, profile, reduced, tmp_path):
+    """The reference's mesh options, which raised before the production
+    layout was ported, now count the step's collectives on it: reduced
+    qwen3-0.6b x decode_32k, over 256 or 512 layout-only ranks."""
+    path = tmp_path / "one.json"
+    assert dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k",
+                        "--json", str(path), *argv]) == 0
+    out = json.loads(path.read_text())
+    assert (out["mesh"], out["chips"], out["profile"]) == (mesh, chips,
+                                                           profile)
+    assert out["ok"] and out["collective_bytes_raw_cpu_hlo"] is None
+    counts = out["collective_counts"]
+    assert sum(counts.values()) > 0 and set(counts) == set(
+        dryrun._COLLECTIVES)
+    assert out["collective_bytes_per_device"] == sum(
+        out["collective_by_kind"].values()) > 0
+    assert out["collective_term_s"] > 0 and out["counted_flops"] > 0
+    with pytest.raises(SystemExit):  # optimized rules need a layout
+        dryrun.main(["--arch", "qwen3-0.6b", "--shape", "decode_32k",
+                     "--profile", "optimized", "--mesh", "h100x1"])
 
 
 def test_single_run_writes_json(tmp_path, reduced):

@@ -180,9 +180,16 @@ def test_launchers_raise_without_a_card_or_the_mesh(monkeypatch):
         train.main(["--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced"])
-    for argv in (["--shape", "train_4k"], ["--force-host"]):
-        with pytest.raises(NotImplementedError, match="production mesh"):
-            train.main(["--reduced", "--device", "cpu", *argv])
+    # the production mesh needs its 256 ranks (the reference's needs its
+    # 256 devices); --reduced overrides the shape and the mesh, as in the
+    # reference, and --force-host steps dry with no card
+    with pytest.raises(RuntimeError, match="256 ranks"):
+        train.main(["--shape", "train_4k", "--device", "cpu"])
+    assert train.main(["--reduced", "--device", "cpu", "--steps", "1",
+                       "--shape", "train_4k", "--batch", "2",
+                       "--seq-len", "8"]) == 0
+    assert train.main(["--reduced", "--force-host", "--steps", "1",
+                       "--batch", "16", "--seq-len", "8"]) == 0
     # the optimized profile and the server's flags run, on the card unless
     # told otherwise (test_torch_launch_profiles.py)
     for main, argv in ((train.main, ["--profile", "optimized"]),

@@ -94,7 +94,19 @@ def test_train_optimized_profile_matches_baseline(monkeypatch, arch):
         assert opt_calls == []
 
 
-def test_train_mesh_options_name_the_next_slice():
-    for argv in (["--shape", "train_4k"], ["--force-host"]):
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            train.main(["--reduced", "--device", "cpu", *argv])
+def test_train_mesh_options_name_the_next_slice(capsys):
+    """``--shape`` and ``--force-host``, which raised until the production
+    layout was ported, now run: ``--shape`` on the production mesh of the current group (none
+    here: it raises naming the 256 ranks), ``--force-host`` dry steps on a
+    256-rank layout-only group it starts and destroys, printing each
+    step's collectives and no loss."""
+    with pytest.raises(RuntimeError, match="256 ranks"):
+        train.main(["--arch", "qwen2-moe-a2.7b", "--shape", "train_4k",
+                    "--device", "cpu", "--profile", "optimized"])
+    assert not dist.is_initialized()
+    assert train.main(["--arch", "qwen2-moe-a2.7b", "--reduced",
+                       "--force-host", "--steps", "1", "--batch", "16",
+                       "--seq-len", "8", "--profile", "optimized"]) == 0
+    out = capsys.readouterr().out
+    assert "step 0: collectives {" in out and "loss=" not in out
+    assert not dist.is_initialized()
