@@ -7,6 +7,10 @@ and preemption (§5.5) requires checkpointing partially-aggregated state.
 
 Semantics: append-only per-topic logs, at-least-once consumption via
 explicit offset commits, optional file-backed persistence.
+
+With a wall-clock ``Tracer`` the queue records a ``queue.publish`` span
+for each ``publish_update`` and a ``queue.poll`` span for each
+``poll_updates``; with the default ``NULL_TRACER`` it reads no clock.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+from repro_torch.obs.trace import NULL_TRACER, wall_clock
 
 
 @dataclasses.dataclass
@@ -84,7 +90,9 @@ class MessageQueue:
       fused/<job_id>       — per-round fused global models
     """
 
-    def __init__(self, persist_dir: Optional[str] = None):
+    def __init__(self, persist_dir: Optional[str] = None, *,
+                 tracer=NULL_TRACER):
+        self.tracer = wall_clock(tracer)
         self._dir = Path(persist_dir) if persist_dir else None
         if self._dir:
             self._dir.mkdir(parents=True, exist_ok=True)
@@ -102,11 +110,30 @@ class MessageQueue:
     def publish_update(self, job_id: str, party_id: str, update: Any,
                        round_idx: int, n_examples: int = 1,
                        timestamp: Optional[float] = None) -> int:
-        return self.topic(f"updates/{job_id}").append(
+        tr = self.tracer
+        if tr.enabled:
+            sid = tr.open("queue", "publish", job_id, round_idx)
+        off = self.topic(f"updates/{job_id}").append(
             party_id,
             {"round": round_idx, "update": update, "n_examples": n_examples},
             timestamp,
         )
+        if tr.enabled:
+            tr.close(sid, offset=off)
+        return off
+
+    def poll_updates(self, job_id: str, group: str,
+                     max_messages: int = 1 << 30,
+                     parent: Optional[int] = None) -> List[Message]:
+        """``Topic.poll`` of ``updates/<job_id>``; traced as ``queue.poll``
+        under the span ``parent`` (its job and round)."""
+        tr = self.tracer
+        if tr.enabled:
+            sid = tr.open("queue", "poll", job_id, parent=parent)
+        msgs = self.topic(f"updates/{job_id}").poll(group, max_messages)
+        if tr.enabled:
+            tr.close(sid, messages=len(msgs))
+        return msgs
 
     def checkpoint_partial(self, job_id: str, state: Any,
                            timestamp: Optional[float] = None) -> int:

@@ -5,7 +5,9 @@ Zero-overhead when disabled: every component defaults to the shared
 Enable by passing a ``Tracer`` via ``Platform(tracer=...)`` or
 ``Platform.serve(..., trace=...)``; export with
 ``tracer.export_chrome(path)`` (Perfetto-loadable) and reconcile billing
-with ``tracer.reconcile(cluster)``.
+with ``tracer.reconcile(cluster)``. A ``Tracer(clock="wall")`` handed to
+``MessageQueue`` and ``AggregationExecutor`` records their wall-clock
+spans instead (``obs.trace``).
 """
 from repro_torch.obs.dashboard import DashboardView
 from repro_torch.obs.registry import Counter, Histogram, MetricsRegistry

@@ -37,10 +37,22 @@ Instrumented call sites are *guarded* — ``if tracer.enabled:
 tracer.event(...)`` — so the disabled hot path is one attribute read and
 a branch: no call, no allocation per event (locked by
 ``tests/test_obs.py``).
+
+**Wall clock** (``Tracer(clock="wall")``): the program's own spans on the
+card's hot path (the queue and the aggregator), stamped with integer
+``time.time_ns()`` — the clock ``torch.profiler``'s ``start_ns()`` reads,
+so a span and a device trace of the same stretch line up. A span is
+opened (``open``, which takes its id) and closed (``close``, which adds
+its attributes); it carries its job and round, shared by every span of
+one round, its parent's id, and, if asked, the device time between two
+CUDA events recorded on the current stream at open and close, read only
+when the trace is read. A tracer keeps one clock: sim-time records on a
+wall-clock tracer, and wall-clock spans on a sim-time one, raise.
 """
 from __future__ import annotations
 
 import json
+import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from repro_torch.obs.registry import MetricsRegistry
@@ -51,6 +63,7 @@ __all__ = [
     "Span",
     "TraceEvent",
     "Tracer",
+    "wall_clock",
 ]
 
 
@@ -76,14 +89,17 @@ class Span(NamedTuple):
     billed endpoints of one container's life (or one task execution
     segment on the pool) and sum to the billed ledger per job."""
 
-    seq: int
-    t0: float
+    seq: int  # a wall-clock span's id, taken when it opened
+    t0: float  # sim seconds; ns of ``time.time_ns()`` on a wall clock
     t1: float
     cat: str
-    name: str  # "task" | "always_on" | "stream"
+    name: str  # "task" | "always_on" | "stream"; "fold" (cat "agg") ...
     job_id: Optional[str] = None
     container_id: Optional[int] = None
     args: Dict[str, object] = {}
+    round_idx: Optional[int] = None  # wall clock only, as the three below
+    parent: Optional[int] = None
+    device_s: Optional[float] = None  # between the span's CUDA events
 
     @property
     def dur(self) -> float:
@@ -106,6 +122,13 @@ class NullTracer:
              **args) -> None:
         pass
 
+    def open(self, cat, name, job_id=None, round_idx=None, parent=None,
+             device=False) -> None:
+        pass
+
+    def close(self, sid, **args) -> None:
+        pass
+
 
 #: THE disabled tracer. One instance, shared by every component that was
 #: not handed an explicit ``Tracer`` — identity-checked in tests.
@@ -116,6 +139,26 @@ NULL_TRACER = NullTracer()
 #: above any realistic pooled id so tracks never collide
 _SYNTH_CID_BASE = 1_000_000
 
+CLOCKS = ("sim", "wall")
+
+
+def wall_clock(tracer):
+    """``tracer``, refused if it records on the sim clock: the card's hot
+    path (queue, aggregator) stamps wall-clock spans only."""
+    if tracer.enabled and tracer.clock != "wall":
+        raise ValueError(f"the queue and the aggregator record wall-clock "
+                         f"spans; this tracer's clock is {tracer.clock!r}")
+    return tracer
+
+
+def _read_span(raw: tuple) -> Span:
+    """The ``Span`` of a raw record; a wall-clock span's CUDA events, if
+    it has them, are read here (both must have completed)."""
+    if len(raw) == 8:
+        return Span(*raw)
+    ev = raw[10]
+    return Span(*raw[:10], ev[0].elapsed_time(ev[1]) * 1e-3 if ev else None)
+
 
 class Tracer:
     """Recording tracer: sim-time events + spans + a metrics registry.
@@ -123,11 +166,24 @@ class Tracer:
     ``max_events`` bounds the instant-event list (drop-oldest) for
     long-horizon traces; spans are one per billed container segment and
     stay unbounded (they are the reconciliation ledger).
+
+    ``clock`` is ``"sim"`` (the simulator's events and spans, the
+    default) or ``"wall"`` (``open`` / ``close`` spans in ns of
+    ``time.time_ns()``, from one thread; ``take_spans`` reads them round
+    by round).
     """
 
     enabled = True
 
-    def __init__(self, max_events: Optional[int] = None):
+    def __init__(self, max_events: Optional[int] = None, *,
+                 clock: str = "sim"):
+        if clock not in CLOCKS:
+            raise ValueError(f"clock {clock!r} is not one of {CLOCKS}")
+        self.clock = clock
+        self._wall = clock == "wall"
+        #: open wall-clock spans: id -> (cat, name, job_id, round_idx,
+        #: parent, start CUDA event, t0)
+        self._open: Dict[int, tuple] = {}
         self._seq = 0
         self.max_events = max_events
         #: raw record storage: plain tuples in TraceEvent/Span field order
@@ -152,6 +208,8 @@ class Tracer:
     # trace-on overhead under the ``benchmarks/simcore.py`` ceiling.
     def event(self, t: float, cat: str, name: str,
               job_id: Optional[str] = None, **args) -> None:
+        if self._wall:
+            raise ValueError("a wall-clock tracer records no sim-time event")
         self._seq = seq = self._seq + 1
         events = self._events
         events.append((seq, t, cat, name, job_id, args))
@@ -164,11 +222,66 @@ class Tracer:
     def span(self, t0: float, t1: float, cat: str, name: str,
              job_id: Optional[str] = None,
              container_id: Optional[int] = None, **args) -> None:
+        if self._wall:
+            raise ValueError("a wall-clock tracer records no sim-time span")
         if container_id is None and cat == "container":
             self._synth_cid = container_id = self._synth_cid + 1
         self._seq = seq = self._seq + 1
         self._spans.append((seq, t0, t1, cat, name, job_id, container_id,
                             args))
+
+    # ---- wall clock --------------------------------------------------------
+    # One span a message on the aggregator's hot path: a clock read, a
+    # tuple and a dict entry at open, a clock read and a list append at
+    # close; the CUDA events are read only by ``take_spans`` / ``spans``.
+    def open(self, cat: str, name: str, job_id: Optional[str] = None,
+             round_idx: Optional[int] = None, parent: Optional[int] = None,
+             device: bool = False) -> int:
+        """Open a wall-clock span and return its id. A span under a
+        ``parent`` takes the parent's job and round where it names none.
+        ``device``: record a CUDA event on the current stream now and at
+        ``close``."""
+        if not self._wall:
+            raise ValueError("a sim-time tracer records no wall-clock span")
+        if parent is not None:
+            p = self._open[parent]
+            job_id = p[2] if job_id is None else job_id
+            round_idx = p[3] if round_idx is None else round_idx
+        ev = None
+        if device:
+            import torch
+
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        self._seq = sid = self._seq + 1
+        self._open[sid] = (cat, name, job_id, round_idx, parent, ev,
+                           time.time_ns())
+        return sid
+
+    def start_ns(self, sid: int) -> int:
+        """The ``time.time_ns()`` at which open span ``sid`` opened."""
+        return self._open[sid][6]
+
+    def close(self, sid: int, **args) -> None:
+        """Close open span ``sid``; ``args`` are its attributes."""
+        t1 = time.time_ns()
+        cat, name, job_id, round_idx, parent, ev0, t0 = self._open.pop(sid)
+        ev = None
+        if ev0 is not None:
+            import torch
+
+            ev = (ev0, torch.cuda.Event(enable_timing=True))
+            ev[1].record()
+        self._spans.append((sid, t0, t1, cat, name, job_id, None, args,
+                            round_idx, parent, ev))
+
+    def take_spans(self) -> List[Span]:
+        """The spans closed since the last call, in closing order, read
+        (CUDA events too: synchronise first) and dropped from the tracer,
+        so a long run reads its spans round by round in bounded memory."""
+        raw, self._spans = self._spans, []
+        self._spans_view = None
+        return [_read_span(s) for s in raw]
 
     # ---- materialized views ----------------------------------------------
     @property
@@ -185,8 +298,7 @@ class Tracer:
     def spans(self) -> List[Span]:
         """The spans in emission order, as ``Span`` records."""
         if self._spans_view is None or self._spans_view_seq != self._seq:
-            make = Span._make
-            self._spans_view = [make(s) for s in self._spans]
+            self._spans_view = [_read_span(s) for s in self._spans]
             self._spans_view_seq = self._seq
         return self._spans_view
 
@@ -307,13 +419,18 @@ class Tracer:
         return failures
 
     # ---- Chrome-trace / Perfetto export ----------------------------------
-    def export_chrome(self, path: str, *, time_unit_us: float = 1e6) -> int:
+    def export_chrome(self, path: str, *,
+                      time_unit_us: Optional[float] = None) -> int:
         """Write the trace as Chrome Trace Event Format JSON (loadable in
         Perfetto / ``chrome://tracing``): one track per container (pid 1),
         one per job (pid 2), a control track (pid 3) with pool-capacity
         counters, instant events for preemptions and resizes. Sim seconds
-        map to trace microseconds. Returns the number of trace events
-        written."""
+        map to trace microseconds; a wall-clock tracer's spans go on the
+        job tracks at ``ts`` in us of ``time.time_ns()``, with their id,
+        parent, round and device seconds. Returns the number of trace
+        events written."""
+        if time_unit_us is None:
+            time_unit_us = 1e-3 if self._wall else 1e6
         tevs: List[Dict[str, object]] = [
             {"ph": "M", "pid": 1, "tid": 0, "name": "process_name",
              "args": {"name": "containers"}},
@@ -342,11 +459,15 @@ class Tracer:
             else:
                 pid, tid = 2, tid_of(s.job_id)
                 name = s.name
+            args = {"job": s.job_id, **s.args}
+            if self._wall:
+                args.update(id=s.seq, parent=s.parent, round=s.round_idx,
+                            device_s=s.device_s)
             tevs.append({
                 "ph": "X", "pid": pid, "tid": tid, "name": name,
                 "cat": s.cat, "ts": s.t0 * time_unit_us,
                 "dur": max(s.t1 - s.t0, 0.0) * time_unit_us,
-                "args": {"job": s.job_id, **s.args},
+                "args": args,
             })
         for ev in self.canonical_events():
             ts = ev.t * time_unit_us
