@@ -14,7 +14,12 @@ with a non-zero exit; no phase catches its own error):
     launch shape and, bit for bit the same, at every other legal one; time
     both, the kernel's bound and one PyTorch call computing the same
     function; and the party-side int8 ``quantize`` on the card against the
-    CPU's, bit for bit;
+    CPU's, bit for bit. pair_fuse's table launch is held bit for bit
+    against the plain version pair by pair over mamba2-130m's and
+    qwen3-0.6b's leaves, a misaligned view and 70 pairs, and each of those
+    models' fold must be one launch; the single pair's time is printed
+    beside the time one launch a pair gave, and each fold's beside the
+    same fold made one launch a leaf (``table_phase`` runs this alone);
  4. the main path: ``Platform().train`` of qwen3-0.6b at full width (bf16),
     3 parties, 2 FedAvg rounds; the streaming fold must go through the
     pair_fuse kernel. One real fold of a party's update (all 14 leaves,
@@ -158,6 +163,12 @@ RECURRENT_SERVES = (("mamba2-130m", 24, 8), ("recurrentgemma-9b", 38, 4),
 # gives the memory reckoning
 CUT_SERVES = (("llama4-scout-17b-a16e", 4, 4),)
 CARD_BYTES = 80e9
+# phase 3: the models whose fold one pair_fuse launch makes over a table of
+# every leaf, checked and timed as such, and the times one launch a pair
+# gave before the table (PERF.md's kernel table and section 6): pair_fuse at
+# MAIN_N, and mamba2-130m's 17-leaf fold in the benchmark's trace
+TABLE_MODELS = ("mamba2-130m", "qwen3-0.6b")
+PAIR_A_LAUNCH_MS = {"single": 0.5167, "mamba2-130m fold": 0.574}
 # phase 15: (config, tolerance of the expert-parallel branch against
 # moe_apply, relative to the output's largest magnitude). On one rank the
 # branch computes moe_apply's sums in the same order, so it should be
@@ -301,6 +312,173 @@ def check_pair_fuse(torch, gen):
         f"each leaf the bits of its own pair_fuse launch ok")
     torch.cuda.synchronize()
     return worst
+
+
+def check_pair_fuse_table(torch, gen):
+    """The table launch (``pair_fuse_many``) against ``pair_fuse_ref``
+    pair by pair, bit for bit, all four ops at every legal launch shape,
+    over TABLE_MODELS' leaves (fp32 accumulator + bf16 update), those of
+    mamba2-130m with every ``b`` a view one element off its vector's
+    alignment, and 70 pairs of the three dtype pairs (two tables of fp32 +
+    bf16, an empty pair among them); each call makes the launches ``plan``
+    lays out. Then ``accumulate`` of each model's update: one launch a fold
+    (``pair_fuse.launches``, ``pair_fuse.pairs``). Returns the leaf sizes of
+    TABLE_MODELS."""
+    from repro_torch import configs, tree_leaves
+    from repro_torch.kernels import autotune, build
+    from repro_torch.kernels.ops import accumulate
+    from repro_torch.kernels.pair_fuse import (Operands, pair_fuse,
+                                               pair_fuse_many, plan)
+    from repro_torch.kernels.ref import pair_fuse_ref
+    from repro_torch.models import model as M
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    configs.load_all()
+    shapes = {name: [tuple(s.shape) for s in tree_leaves(
+        M.param_specs(configs.get_config(name)))] for name in TABLE_MODELS}
+    rng = torch.Generator().manual_seed(SEED)
+    sizes70 = torch.randint(1, 300_000, (70,), generator=rng).tolist()
+    sizes70[30] = 0
+    dts70 = [(f32, bf16)] * 70
+    dts70[10], dts70[20] = (f32, f32), (bf16, bf16)
+    cases = [(name, [(f32, bf16, s, False) for s in shapes[name]])
+             for name in TABLE_MODELS]
+    cases.append(("mamba2-130m misaligned",
+                  [(f32, bf16, s, True) for s in shapes["mamba2-130m"]]))
+    cases.append(("70 pairs", [(da, db, (n,), i % 5 == 1) for i, ((da, db), n)
+                               in enumerate(zip(dts70, sizes70))]))
+    kb, threads = build.DEFAULT_SHAPES["pair_fuse"]
+    every = [(None, None)] + [c for c in autotune.candidates(
+        "pair_fuse", 2, MAIN_N, 2) if c != build.default_tile("pair_fuse")]
+    for name, spec in cases:
+        a_list, b_list = [], []
+        for da, db, shape, off in spec:
+            n = math.prod(shape)
+            a_list.append(torch.randn(n, generator=gen, device="cuda")
+                          .to(da).view(shape))
+            b = torch.randn(n + off, generator=gen, device="cuda").to(db)
+            b_list.append(b[off:].view(shape))
+        launches = len(plan([Operands(a.dtype, b.dtype, a.numel(),
+                                      a.data_ptr(), b.data_ptr(), 0)
+                             for a, b in zip(a_list, b_list)], kb, threads))
+        for op, wa, wb in (("wsum", 1.0, 0.37), ("mean", 0.5, 0.5),
+                           ("max", 1.0, 1.0), ("min", 1.0, 1.0)):
+            want = [pair_fuse_ref(a.reshape(-1), b.reshape(-1), op, wa, wb)
+                    .reshape(a.shape) for a, b in zip(a_list, b_list)]
+            for bn, kbs in every:
+                l0 = pair_fuse.launches
+                got = pair_fuse_many(a_list, b_list, op=op, wa=wa, wb=wb,
+                                     bn=bn, kb=kbs)
+                if pair_fuse.launches - l0 != launches:
+                    raise AssertionError(
+                        f"pair_fuse_many {name}: {pair_fuse.launches - l0} "
+                        f"launches, {launches} planned")
+                for a, w, g in zip(a_list, want, got, strict=True):
+                    if g.dtype != a.dtype or not torch.equal(g, w):
+                        raise AssertionError(
+                            f"pair_fuse_many {name} {op} at bn={bn} kb={kbs}"
+                            f": a leaf of {tuple(a.shape)} {a.dtype} differs "
+                            f"from pair_fuse_ref")
+                del got
+            del want
+        log(f"  pair_fuse table, {name}: {len(spec)} pairs in {launches} "
+            f"launch(es), each pair the bits of pair_fuse_ref, 4 ops at all "
+            f"{len(every)} legal launch shapes ok")
+        del a_list, b_list
+        torch.cuda.empty_cache()
+    for name in TABLE_MODELS:
+        acc = [torch.randn(math.prod(s), generator=gen, device="cuda")
+               .view(s) for s in shapes[name]]
+        upd = [torch.randn(math.prod(s), generator=gen, device="cuda")
+               .to(bf16).view(s) for s in shapes[name]]
+        l0, p0 = pair_fuse.launches, pair_fuse.pairs
+        accumulate(acc, upd, 0.37)
+        got = (pair_fuse.launches - l0, pair_fuse.pairs - p0)
+        log(f"  accumulate, {name}: {got[0]} pair_fuse launch(es), "
+            f"{got[1]} pairs ({len(acc)} leaves)")
+        if got != (1, len(acc)):
+            raise AssertionError(f"{name}'s fold is not one launch of "
+                                 f"every leaf: {got}")
+        del acc, upd
+    torch.cuda.synchronize()
+    return {name: [math.prod(s) for s in shapes[name]]
+            for name in TABLE_MODELS}
+
+
+def time_table_folds(torch, gen, sizes) -> dict:
+    """Device time (CUDA events, ``cuda_ms``) of one fold of each model of
+    ``sizes`` (leaf sizes; fp32 accumulator + bf16 update, wsum): the
+    table launch (``accumulate``) against the same fold made one pair_fuse
+    launch a leaf, largest first, as the fold ran before the table, and
+    the latter's time in the benchmark's trace."""
+    from repro_torch.kernels.ops import accumulate
+    from repro_torch.kernels.pair_fuse import pair_fuse
+
+    out = {}
+    for name, leaves in sizes.items():
+        acc = [torch.randn(n, generator=gen, device="cuda")
+               for n in sorted(leaves, reverse=True)]
+        upd = [torch.randn(n, generator=gen, device="cuda").to(
+            torch.bfloat16) for n in sorted(leaves, reverse=True)]
+        table = cuda_ms(lambda: accumulate(acc, upd, 0.37))
+        per_leaf = cuda_ms(lambda: [pair_fuse(a, u, op="wsum", wa=1.0,
+                                              wb=0.37)
+                                    for a, u in zip(acc, upd)])
+        n = sum(leaves)
+        bound, _ = bound_ms(n * (4 + 2 + 4), 3 * n)
+        out[name] = {"leaves": len(leaves), "table_ms": table,
+                     "per_leaf_ms": per_leaf, "bound_ms": bound}
+        log(f"  one fold of {name} ({len(leaves)} leaves, {n:,} elements): "
+            f"table launch {table:.4f} ms, one launch a leaf {per_leaf:.4f} "
+            f"ms ({per_leaf / table:.4f} x), bound {bound:.4f} ms "
+            f"({100 * bound / table:.2f} % of it)")
+        del acc, upd
+    before = PAIR_A_LAUNCH_MS["mamba2-130m fold"]
+    if "mamba2-130m" in out:
+        log(f"  mamba2-130m's fold one launch a leaf in the benchmark's "
+            f"trace before the table: {before} ms (device time of its "
+            f"kernels alone); the table launch {out['mamba2-130m']['table_ms']:.4f} "
+            f"ms with its gaps")
+    torch.cuda.synchronize()
+    return out
+
+
+def table_phase(torch) -> dict:
+    """Phase 3's table checks and times on their own, after the card's line
+    and the build: ``PYTHONPATH=src python3 -c "import sys, torch;
+    sys.path.insert(0, '.'); import chip_smoke; chip_smoke.table_phase(torch)"``.
+    Prints and returns the single pair's time at MAIN_N beside its bound
+    and the time one launch a pair gave, and each model's fold."""
+    from repro_torch.kernels import build
+
+    log(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    log(f"built in {build.build_all():.2f} s")
+    for text in build.build_log.values():
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
+        log(f"  {len(regs)} instantiations, {min(regs)}-{max(regs)} "
+            f"registers/thread, {spills} bytes of spills")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t_pf, _ = time_kernels(torch, gen)
+    single = single_pair_line(t_pf)
+    folds = time_table_folds(torch, gen, check_pair_fuse_table(torch, gen))
+    res = {"single": single, "folds": folds}
+    log("  table phase summary: " + json.dumps(res))
+    return res
+
+
+def single_pair_line(t: dict) -> dict:
+    """pair_fuse at MAIN_N (a table of one) beside its bound and the time
+    one launch a pair gave."""
+    before = PAIR_A_LAUNCH_MS["single"]
+    log(f"  pair_fuse at N={MAIN_N:,}, a table of one: {t['ms']:.4f} ms "
+        f"(bound {t['bound_ms']:.4f} ms, {t['ms'] / t['bound_ms']:.4f} x); "
+        f"one launch a pair gave {before} ms: "
+        f"{'no slower' if t['ms'] <= before else 'slower'}")
+    return {"ms": t["ms"], "bound_ms": t["bound_ms"], "before_ms": before}
 
 
 def check_fused_agg(torch, gen):
@@ -2290,6 +2468,7 @@ def main() -> int:
     t_pf, t_fa = time_kernels(torch, gen)
     t_qa = time_quant_agg(torch, gen)
     err_pf = check_pair_fuse(torch, gen)
+    table_sizes = check_pair_fuse_table(torch, gen)
     err_fa = check_fused_agg(torch, gen)
     err_qa = check_quant_agg(torch, gen)
     check_quantize(torch, gen)
@@ -2301,6 +2480,8 @@ def main() -> int:
         f"by {t_qa['bound_by']}), plain {t_qa['plain_ms']:.4f} ms, library "
         f"none: no single PyTorch call takes int8 rows with fp32 scales, so "
         f"library_ms is null")
+    single_pair_line(t_pf)
+    time_table_folds(torch, gen, table_sizes)
     torch.cuda.empty_cache()
 
     # 4. the main path

@@ -29,9 +29,10 @@ _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_fl
 # cudaGetLastError() after the launch, and cudaErrorInvalidValue for a launch
 # shape (elements a thread, threads a block) outside common.cuh's fixed set
 SIGNATURES = {
-    # a, b, out, n, op, a_dtype, b_dtype, wa, wb, vec, threads, stream
-    "pair_fuse": ("pair_fuse_launch",
-                  [_vp, _vp, _vp, _ll, _i, _i, _i, _f, _f, _i, _i, _vp]),
+    # rows (count x 6 int64: a, b, out, n, first block, vector flag), count,
+    # op, a_dtype, b_dtype, wa, wb, vec, threads, stream
+    "pair_fuse": ("pair_fuse_table_launch",
+                  [_vp, _i, _i, _i, _i, _f, _f, _i, _i, _vp]),
     # updates, weights, out, k, n, dtype, vec, threads, stream
     "fused_agg": ("fused_agg_launch",
                   [_vp, _vp, _vp, _i, _ll, _i, _i, _i, _vp]),

@@ -53,8 +53,9 @@ def accumulate(acc: Optional[Pytree], update: Pytree, weight: float, *,
 
     This is the aggregator's inner operation: each arriving update is folded
     into the running fp32 accumulator with the pair_fuse kernel, one
-    launch a leaf and all of them from one call (``pair_fuse_many``), so
-    aggregation state is one model-sized buffer regardless of K. A new
+    launch a fold that covers every leaf (``pair_fuse_many``: a table of
+    the leaves, one table a dtype pair), so aggregation state is one
+    model-sized buffer regardless of K. A new
     accumulator is returned because a checkpointed partial aggregate holds
     the old one by reference. The kernel reads a bf16 update directly; the
     sum is the one the fp32 copy of the update would give."""

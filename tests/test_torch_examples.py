@@ -80,7 +80,7 @@ def test_federated_100m_run_matches_reference():
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_probe_sizes_its_operands_from_the_leaves(dtype, monkeypatch):
     """The probe is the aggregator's own fold (``ops.accumulate``, one
-    pair_fuse a leaf) of an update in the model's dtype into an fp32
+    pair_fuse launch over every leaf) of an update in the model's dtype into an fp32
     accumulator with the model's leaf sizes: the operands of the
     aggregator's folds, leaf for leaf. The CPU caps the accumulator at
     CPU_PROBE_CAP bytes, every leaf cut by the same factor, and scales the

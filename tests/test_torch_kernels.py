@@ -191,12 +191,13 @@ def test_accumulate_is_out_of_place():
 
 
 def test_cpu_calls_are_not_kernel_launches():
-    p0, f0 = pair_fuse.launches, fused_agg.launches
+    p0, f0 = (pair_fuse.launches, pair_fuse.pairs), fused_agg.launches
     pair_fuse(torch.ones(5), torch.ones(5), op="wsum")
     pair_fuse_many([torch.ones(5), torch.ones(2, 3)],
                    [torch.ones(5), torch.ones(2, 3)], op="wsum")
     fused_agg(torch.ones(2, 5), torch.ones(2))
-    assert (pair_fuse.launches, fused_agg.launches) == (p0, f0)
+    assert ((pair_fuse.launches, pair_fuse.pairs),
+            fused_agg.launches) == (p0, f0)
 
 
 def test_wrappers_reject_what_they_do_not_take():

@@ -14,7 +14,8 @@ import repro_torch.fl.aggregator as aggregator
 import repro_torch.kernels.ops as ops
 from repro_torch.core.queue import MessageQueue
 from repro_torch.fl.aggregator import AggregationExecutor
-from repro_torch.kernels.pair_fuse import pair_fuse
+from repro_torch.kernels import build
+from repro_torch.kernels.pair_fuse import Operands, pair_fuse, plan
 from repro_torch.obs.trace import NULL_TRACER, NullTracer, Tracer
 
 torch.set_num_threads(1)
@@ -45,12 +46,18 @@ def _round(tracer, k=4, stale=1, seed=0):
 
 @pytest.fixture
 def counted_launches(monkeypatch):
-    """``pair_fuse_many`` counting a launch a pair, as it does on the card
-    (the CPU's plain path launches nothing)."""
+    """``pair_fuse_many`` counting a launch a dtype pair and chunk of its
+    pairs (``plan``), as it does on the card (the CPU's plain path launches
+    nothing)."""
     real = ops.pair_fuse_many
 
     def counting(a_list, b_list, **kw):
-        pair_fuse.launches += len(a_list)
+        launches = plan([Operands(a.dtype, b.dtype, a.numel(), a.data_ptr(),
+                                  b.data_ptr(), a.data_ptr())
+                         for a, b in zip(a_list, b_list)],
+                        *build.DEFAULT_SHAPES["pair_fuse"])
+        pair_fuse.launches += len(launches)
+        pair_fuse.pairs += sum(len(la.entries) for la in launches)
         return real(a_list, b_list, **kw)
 
     monkeypatch.setattr(ops, "pair_fuse_many", counting)
@@ -95,8 +102,8 @@ def test_drain_is_poll_and_one_fold_a_message(counted_launches):
         assert (s.job_id, s.round_idx) == (JOB, 1)
         assert drain.t0 <= s.t0 <= s.t1 <= drain.t1
     # the first fold makes the accumulator (no launch), each later one
-    # launches once a leaf
-    assert [s.args["launches"] for s in folds] == [0, 3, 3, 3]
+    # launches once for its three leaves
+    assert [s.args["launches"] for s in folds] == [0, 1, 1, 1]
     for s in folds:
         # the message's timestamp is a float of seconds (a ulp of 238 ns)
         assert 0 <= s.args["wait_ns"] \
