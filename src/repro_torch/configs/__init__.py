@@ -24,6 +24,7 @@ ARCH_MODULES = [
     "qwen2_5_14b",
     "qwen2_moe_a2_7b",
     "example_100m",
+    "nemotron_3_nano_30b_a3b",
 ]
 
 _loaded = False

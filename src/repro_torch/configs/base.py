@@ -22,12 +22,15 @@ class ModelConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 10000.0
+    # rotary embeddings on q and k; Nemotron-H's attention applies none
+    rotary: bool = True
     sliding_window: Optional[int] = None  # window for "lattn" blocks
     # window used when a full-attention arch runs long_500k as the SWA variant
     swa_window: int = 8192
 
     # --- block pattern (repeated; remainder handled as a trailing stage) ---
-    # entries: attn | lattn | xattn | moe | rglru | ssm
+    # entries: attn | lattn | xattn | moe | rglru | ssm | moe_only |
+    # attn_only (the last two: one mixer after its norm, no MLP)
     block_pattern: Tuple[str, ...] = ("attn",)
 
     # --- MoE ---------------------------------------------------------------
@@ -36,14 +39,28 @@ class ModelConfig:
     num_shared_experts: int = 0
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    # softmax | sigmoid: sigmoid scores, the top-k chosen on the scores plus
+    # a per-expert ``e_score_correction_bias`` leaf (the choice only), the
+    # gates the chosen scores over their sum
+    router: str = "softmax"
+    routed_scale: float = 1.0  # every gate times this
+    expert_act: str = "swiglu"  # swiglu | relu2 (non-gated relu(x)^2 MLP)
+    shared_d_ff: int = 0  # the shared experts' width; 0: d_ff x num_shared
+    # the experts this layer holds, [expert_first, expert_first +
+    # experts_held) of num_experts (0: all); the router keeps all of them
+    expert_first: int = 0
+    experts_held: int = 0
+    dropless: bool = False  # a capacity of every position: nothing dropped
 
     # --- SSM (mamba2 / SSD) --------------------------------------------------
     ssm_state: int = 0
     ssm_heads: int = 0
     ssm_head_dim: int = 0
     ssm_chunk: int = 256
-    ssm_expand: int = 2
+    ssm_expand: int = 2  # d_inner = ssm_expand x d_model; 0: heads x head_dim
+    ssm_groups: int = 1  # B/C groups; head h reads group h // (heads / groups)
     conv_kernel: int = 4
+    ssm_conv_bias: bool = False
 
     # --- RG-LRU (Griffin / recurrentgemma) ----------------------------------
     rnn_width: int = 0
@@ -57,6 +74,9 @@ class ModelConfig:
 
     # --- misc ----------------------------------------------------------------
     norm_eps: float = 1e-6
+    # embeddings times sqrt(d_model); None: for the hybrid family
+    # (recurrentgemma's convention)
+    embed_scale: Optional[bool] = None
     dtype: str = "bfloat16"
     # how this arch supports long_500k: native | swa
     long_context: str = "swa"
@@ -71,7 +91,14 @@ class ModelConfig:
 
     @property
     def d_inner(self) -> int:  # SSM inner width
-        return self.ssm_expand * self.d_model
+        if self.ssm_expand:
+            return self.ssm_expand * self.d_model
+        return self.ssm_heads * self.ssm_head_dim
+
+    @property
+    def n_experts_held(self) -> int:
+        """The experts whose weights a MoE layer holds."""
+        return self.experts_held or self.num_experts
 
     def stages(self) -> Tuple[Tuple[Tuple[str, ...], int], ...]:
         """Decompose num_layers into (pattern, repeats) scan stages.
@@ -112,11 +139,18 @@ class ModelConfig:
             kw["num_experts"] = min(self.num_experts, 4)
             kw["num_experts_per_tok"] = min(self.num_experts_per_tok, 2)
             kw["num_shared_experts"] = min(self.num_shared_experts, 1)
+            if self.shared_d_ff:
+                kw["shared_d_ff"] = 2 * kw["d_ff"]
+            if self.experts_held:  # a share of half the experts
+                kw["expert_first"] = 0
+                kw["experts_held"] = kw["num_experts"] // 2
         if self.ssm_heads:
             kw["ssm_heads"] = 4
-            kw["ssm_head_dim"] = self.ssm_expand * kw["d_model"] // 4
+            kw["ssm_head_dim"] = (self.ssm_expand * kw["d_model"] // 4
+                                  if self.ssm_expand else 32)
             kw["ssm_state"] = 32
             kw["ssm_chunk"] = 16
+            kw["ssm_groups"] = min(self.ssm_groups, 2)
         if self.rnn_width:
             kw["rnn_width"] = min(self.d_model, 256)
         if self.sliding_window:

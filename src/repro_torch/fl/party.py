@@ -67,10 +67,13 @@ class Party:
         return loss, metrics
 
     def _grads(self, params, loss_of) -> Tuple[Pytree, torch.Tensor]:
-        """(d loss / d params, loss) for a loss of the parameter tree."""
+        """(d loss / d params, loss) for a loss of the parameter tree; zeros
+        for a leaf the loss does not reach (a MoE router's correction bias,
+        which only chooses the experts), as ``jax.grad`` gives."""
         leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         loss = loss_of(tree_unflatten(params, leaves))
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         return tree_unflatten(params, list(grads)), loss.detach()
 
     def _step(self, params, opt_state, batch, global_params):

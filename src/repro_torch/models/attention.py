@@ -265,8 +265,9 @@ def self_attention(
     fills it (prefill) and S == 1 reads and updates the ring buffer
     (decode). The cache's tensors are written in place and returned."""
     q, k, v = _project_qkv(cfg, p, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.rotary:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if opt_feature("kv_anchor") and x.shape[1] > 1:
         # §Perf H3: anchor the (small, GQA) K/V sequence-replicated, so that
         # a sequence-parallel residual gathers them once a layer and every

@@ -1,7 +1,7 @@
-"""Common layers: RMSNorm, RoPE, SwiGLU MLP, conv1d."""
+"""Common layers: RMSNorm, RoPE, SwiGLU and relu² MLPs, conv1d."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,10 +65,33 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# relu² MLP (Nemotron-H: non-gated, w_down(relu(w_up x)^2))
+# --------------------------------------------------------------------------
+def relu2_mlp_specs(d_model: int, d_ff: int) -> Dict[str, TensorSpec]:
+    return {
+        "w_up": TensorSpec((d_model, d_ff), ("d_model", "d_ff")),
+        "w_down": TensorSpec((d_ff, d_model), ("d_ff", "d_model")),
+    }
+
+
+def relu2(u: torch.Tensor) -> torch.Tensor:
+    """relu(u)^2, computed in fp32 and cast back to u's dtype."""
+    return torch.square(F.relu(u.to(torch.float32))).to(u.dtype)
+
+
+def relu2_mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor
+                    ) -> torch.Tensor:
+    h = relu2(contract("...d,df->...f", x, p["w_up"], torch.matmul))
+    return contract("...f,fd->...d", h, p["w_down"], torch.matmul)
+
+
+# --------------------------------------------------------------------------
 # temporal conv1d (causal, per-channel), used by SSM and RG-LRU blocks
 # --------------------------------------------------------------------------
-def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, C); w: (K, C) depthwise causal conv along S.
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B, S, C); w: (K, C) depthwise causal conv along S; bias: (C,)
+    added after the taps, or None.
 
     The K taps are summed one by one in fp32, in tap order, as the
     reference does; ``F.conv1d(groups=C)`` sums in another order, and the
@@ -79,16 +102,21 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for i in range(k):
         out = out + pad[:, i:i + s, :].to(torch.float32) * w[i].to(
             torch.float32)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
     return out.to(x.dtype)
 
 
-def conv1d_step(x_t: torch.Tensor, conv_cache: torch.Tensor, w: torch.Tensor
+def conv1d_step(x_t: torch.Tensor, conv_cache: torch.Tensor, w: torch.Tensor,
+                bias: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decode step. x_t: (B, C); conv_cache: (B, K-1, C) past inputs.
-    Returns (output, the new K-1 past inputs); the taps are summed as in
-    ``causal_conv1d``."""
+    Returns (output, the new K-1 past inputs); the taps are summed, and
+    the bias added, as in ``causal_conv1d``."""
     window = torch.cat([conv_cache, x_t[:, None, :]], dim=1)  # (B, K, C)
     out = torch.zeros(x_t.shape, dtype=torch.float32, device=x_t.device)
     for i in range(w.shape[0]):
         out = out + window[:, i].to(torch.float32) * w[i].to(torch.float32)
+    if bias is not None:
+        out = out + bias.to(torch.float32)
     return out.to(x_t.dtype), window[:, 1:, :]

@@ -16,6 +16,7 @@ from repro_torch.models.layers import rms_norm, rms_norm_spec
 from repro_torch.models.sharding_ctx import (constrain, contract, lay_out_cache,
                                              lookup, opt_feature)
 from repro_torch.models.spec import DTYPES, TensorSpec, count_params, init_params
+from repro_torch.obs.trace import NULL_TRACER
 
 
 # --------------------------------------------------------------------------
@@ -85,7 +86,9 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
             h = h + lookup(tokens[..., k], params["embed"][k])
     else:
         h = lookup(tokens, params["embed"])
-    if cfg.family == "hybrid":  # gemma-style embedding scaling
+    scaled = (cfg.family == "hybrid" if cfg.embed_scale is None
+              else cfg.embed_scale)
+    if scaled:  # gemma-style embedding scaling
         # sqrt(d_model) rounded to the embedding's dtype first, as the
         # reference's jnp.asarray(..., h.dtype)
         scale = torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype).item()
@@ -109,9 +112,11 @@ def forward(
     image_embeds: Optional[torch.Tensor] = None,
     cache: Optional[Pytree] = None,
     training: bool = False,
+    tracer=NULL_TRACER,
 ) -> Tuple[torch.Tensor, Optional[Pytree], torch.Tensor]:
     """Returns (fp32 logits, cache, aux_loss). Tokens are (B, S), or (B, S,
-    K) for a config with K codebooks, whose logits are (B, S, K, V).
+    K) for a config with K codebooks, whose logits are (B, S, K, V). With
+    a ``tracer`` the MoE layers count their routing in its ``metrics``.
 
     cache None  -> full-sequence training forward (cache None out).
     cache given, S > 1 -> prefill (fills the cache's slots).
@@ -131,7 +136,8 @@ def forward(
         c_i = cache[f"stage{i}"] if cache is not None else None
         h, _, aux = tfm.stage_apply(
             cfg, pattern, reps, params[f"stage{i}"], h, positions=positions,
-            t=t, cache=c_i, image_embeds=image_embeds, training=training)
+            t=t, cache=c_i, image_embeds=image_embeds, training=training,
+            tracer=tracer)
         aux_total = aux_total + aux
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = _head(cfg, params, h)

@@ -27,49 +27,97 @@ the expert-parallel branch, ``_moe_apply_shard_map``: the rank's part of
 the reference's ``shard_map`` (experts over the mesh's model axis, batch
 over its data axes), with ``torch.distributed.nn.functional``'s
 collectives on the mesh's groups.
+
+Nemotron-H's layer (port-only fields of the config): a sigmoid router
+whose top-k is chosen on the scores plus ``e_score_correction_bias`` (a
+leaf no gradient reaches), gates normalised over the chosen scores and
+scaled by ``routed_scale``; relu² experts and shared expert; a dispatch
+with a capacity of every position (``dropless``); and a layer that holds
+a share of the experts (``expert_first``, ``experts_held``). That layer
+routes over all ``num_experts`` and computes its own experts' part of the
+result only, as one rank of the expert-parallel branch does, without the
+exchange; the shared expert is computed whole. With a ``Tracer`` the
+layer counts its top-k choices (``moe.assignments``), those that fell on
+its experts (``moe.held_assignments``) and those the capacity dropped
+(``moe.dropped``) in ``Tracer.metrics``; a count reads the device.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import mlp_apply, mlp_specs
+from repro_torch.models.layers import (mlp_apply, mlp_specs, relu2,
+                                       relu2_mlp_apply, relu2_mlp_specs)
 from repro_torch.models.sharding_ctx import (constrain, contract,
                                              head_local, is_dtensor,
                                              mesh_sizes, moe_shard_map_ctx)
 from repro_torch.models.spec import TensorSpec
+from repro_torch.obs.trace import NULL_TRACER
 
 
 def moe_specs(cfg: ModelConfig) -> Dict[str, TensorSpec]:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    el = cfg.n_experts_held
+    if not 0 <= cfg.expert_first <= e - el:
+        raise ValueError(f"experts {cfg.expert_first}..{cfg.expert_first + el}"
+                         f" are not among the {e}")
     s: Dict[str, TensorSpec] = {
         "router": TensorSpec((d, e), ("d_model", None), scale=0.5),
-        "w_gate": TensorSpec((e, d, f), ("experts", "d_model", "d_ff")),
-        "w_up": TensorSpec((e, d, f), ("experts", "d_model", "d_ff")),
-        "w_down": TensorSpec((e, f, d), ("experts", "d_ff", "d_model")),
+        "w_up": TensorSpec((el, d, f), ("experts", "d_model", "d_ff")),
+        "w_down": TensorSpec((el, f, d), ("experts", "d_ff", "d_model")),
     }
+    if cfg.expert_act == "swiglu":
+        s["w_gate"] = TensorSpec((el, d, f), ("experts", "d_model", "d_ff"))
+    elif cfg.expert_act != "relu2":
+        raise ValueError(f"unknown expert activation {cfg.expert_act!r}")
+    if cfg.router == "sigmoid":
+        s["e_score_correction_bias"] = TensorSpec((e,), (None,),
+                                                  init="zeros")
+    elif cfg.router != "softmax":
+        raise ValueError(f"unknown router {cfg.router!r}")
     if cfg.num_shared_experts:
-        s["shared"] = mlp_specs(d, f * cfg.num_shared_experts)
+        fs = cfg.shared_d_ff or f * cfg.num_shared_experts
+        s["shared"] = (mlp_specs(d, fs) if cfg.expert_act == "swiglu"
+                       else relu2_mlp_specs(d, fs))
     return s
 
 
 def capacity(cfg: ModelConfig, seq: int) -> int:
+    if cfg.dropless:  # an expert is chosen at most once a position
+        return seq
     c = math.ceil(seq * cfg.num_experts_per_tok / cfg.num_experts * cfg.capacity_factor)
     return max(4 * math.ceil(c / 4), 4)
 
 
-def _route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
-    """Router probs + normalised top-k gates. x: (B,S,d)."""
-    logits = contract("bsd,de->bse", x, router).to(torch.float32)
-    probs = torch.softmax(logits, dim=-1)  # (B,S,E)
+def _route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor,
+           bias: Optional[torch.Tensor] = None):
+    """Router scores + normalised top-k gates and their experts. x:
+    (B,S,d). Softmax: the probabilities, the top-k of them. Sigmoid: fp32
+    logits, their sigmoids, the top-k chosen on the sigmoids plus the
+    correction ``bias`` and gated by the sigmoids alone."""
     k = cfg.num_experts_per_tok
-    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, idx = gate[..., :k], idx[..., :k]  # (B,S,k)
-    gate = gate / torch.clamp(torch.sum(gate, dim=-1, keepdim=True), min=1e-9)
+    if cfg.router == "sigmoid":
+        f32 = torch.float32
+        logits = contract("bsd,de->bse", x.to(f32), router.to(f32))
+        probs = torch.sigmoid(logits)  # (B,S,E)
+        choice = probs + bias.to(f32)
+        _, idx = torch.sort(choice, dim=-1, descending=True, stable=True)
+        idx = idx[..., :k]  # (B,S,k)
+        gate = torch.gather(probs, -1, idx)
+        gate = gate / (torch.sum(gate, dim=-1, keepdim=True) + 1e-20)
+    else:
+        logits = contract("bsd,de->bse", x, router).to(torch.float32)
+        probs = torch.softmax(logits, dim=-1)  # (B,S,E)
+        gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gate, idx = gate[..., :k], idx[..., :k]  # (B,S,k)
+        gate = gate / torch.clamp(torch.sum(gate, dim=-1, keepdim=True),
+                                  min=1e-9)
+    if cfg.routed_scale != 1.0:
+        gate = gate * cfg.routed_scale
     return probs, gate, idx
 
 
@@ -106,13 +154,28 @@ def _dispatch_tables(gate, idx, e_rows: int, c: int, dtype):
             slot, keep)
 
 
-def _expert_ffn(xg, wg, wu, wd, gate_table):
-    """(B,E,C,d) tokens through per-expert SwiGLU, gate-weighted."""
-    g = contract("becd,edf->becf", xg, wg)
-    u = contract("becd,edf->becf", xg, wu)
-    h = F.silu(g.to(torch.float32)).to(xg.dtype) * u
-    out = contract("becf,efd->becd", h, wd)
+def _expert_ffn(xg, p, gate_table):
+    """(B,E,C,d) tokens through per-expert SwiGLU (or relu² where ``p``
+    has no ``w_gate``), gate-weighted."""
+    u = contract("becd,edf->becf", xg, p["w_up"])
+    if "w_gate" in p:
+        g = contract("becd,edf->becf", xg, p["w_gate"])
+        h = F.silu(g.to(torch.float32)).to(xg.dtype) * u
+    else:
+        h = relu2(u)
+    out = contract("becf,efd->becd", h, p["w_down"])
     return out * gate_table[..., None]
+
+
+def _held_rows(table, gate_table, slot, keep, first: int, n: int, c: int):
+    """The tables' rows of experts ``first`` .. ``first + n - 1``, and the
+    (token, choice) slots renumbered from their first slot; a slot of
+    another expert is not kept."""
+    rows = slice(first, first + n)
+    lo = first * c
+    mine = keep & (slot >= lo) & (slot < lo + n * c)
+    return (table[:, rows], gate_table[:, rows],
+            torch.where(mine, slot - lo, 0), mine)
 
 
 class _GatherTokens(torch.autograd.Function):
@@ -172,8 +235,15 @@ def _aux_loss(probs, idx, e: int) -> torch.Tensor:
     return e * torch.sum(frac * mean_prob)
 
 
+def _shared(p, x):
+    """The shared expert: SwiGLU, or relu² where it has no ``w_gate``."""
+    sh = p["shared"]
+    return mlp_apply(sh, x) if "w_gate" in sh else relu2_mlp_apply(sh, x)
+
+
 def moe_apply(
-    cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
+    cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+    tracer=NULL_TRACER,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss).
 
@@ -186,19 +256,29 @@ def moe_apply(
         return _moe_shard_map_ranks(cfg, p, x, *ctx)
 
     b, s, d = x.shape
-    e = cfg.num_experts
+    e, first, n = cfg.num_experts, cfg.expert_first, cfg.n_experts_held
     c = capacity(cfg, s)
-    probs, gate, idx = _route(cfg, p["router"], x)
+    probs, gate, idx = _route(cfg, p["router"], x,
+                              p.get("e_score_correction_bias"))
     # each sequence on its own: on DTensors, each rank its sequences
     b_ = (0, None)
     table, gate_table, slot, keep = head_local(
         lambda g, i: _dispatch_tables(g, i, e, c, x.dtype), (), (b_, b_),
         (b_,) * 4, gate, idx)
+    if tracer.enabled:
+        count = tracer.metrics.counter
+        count("moe.assignments").inc(idx.numel())
+        count("moe.held_assignments").inc(
+            int(((idx >= first) & (idx < first + n)).sum()))
+        count("moe.dropped").inc(int((~keep).sum()))
+    if n != e:  # this layer's share of the experts
+        table, gate_table, slot, keep = _held_rows(
+            table, gate_table, slot, keep, first, n, c)
     xg = _gather_tokens(x, table, slot, keep)
-    out = _expert_ffn(xg, p["w_gate"], p["w_up"], p["w_down"], gate_table)
+    out = _expert_ffn(xg, p, gate_table)
     y = _combine(out, slot, keep)
     if cfg.num_shared_experts:
-        y = y + mlp_apply(p["shared"], x)
+        y = y + _shared(p, x)
     return y, _aux_loss(probs, idx, e)
 
 
@@ -317,21 +397,19 @@ def _moe_local(cfg, p, x, mesh, batch_axes, model_axis):
     c = capacity(cfg, x.shape[1])
 
     # routing over the FULL expert set, identical on every model shard
-    probs, gate, idx = _route(cfg, p["router"], x)
+    probs, gate, idx = _route(cfg, p["router"], x,
+                              p.get("e_score_correction_bias"))
     table, gate_table, slot, keep = _dispatch_tables(gate, idx, e_pad, c,
                                                      x.dtype)
     # this shard's experts' rows of the tables, and its (token, choice)
     # slots renumbered from its first slot
-    rows = slice(j * el, (j + 1) * el)
-    lo = j * el * c
-    mine = keep & (slot >= lo) & (slot < lo + el * c)
-    slot_l = torch.where(mine, slot - lo, 0)
-    xg = _gather_tokens(x, table[:, rows], slot_l, mine)
-    out = _expert_ffn(xg, p["w_gate"], p["w_up"], p["w_down"],
-                      gate_table[:, rows])
+    table, gate_table, slot_l, mine = _held_rows(table, gate_table, slot,
+                                                 keep, j * el, el, c)
+    xg = _gather_tokens(x, table, slot_l, mine)
+    out = _expert_ffn(xg, p, gate_table)
     y = _combine(out, slot_l, mine)
     if cfg.num_shared_experts:
-        y = y + mlp_apply(p["shared"], x)
+        y = y + _shared(p, x)
     if cfg.sequence_parallel:
         # combine + reshard in one collective: the residual stream is
         # sequence-sharded over the model axis

@@ -3,7 +3,11 @@
 Training/prefill uses the chunked SSD algorithm: quadratic attention-like
 computation within chunks of length Q, linear recurrence across chunk
 states (a loop over the chunks; the reference scans them). Decode is the
-O(1) state update. ngroups=1.
+O(1) state update. With ``ssm_groups`` G > 1 (Nemotron-H), B and C are G
+groups of the state size, head h reading group h // (H / G), the chunked
+SSD runs group by group over its heads, and the gated RMSNorm normalises
+each of G groups of d_inner / G; G = 1 is the reference's block. The
+convolutions take a bias where ``ssm_conv_bias`` says so.
 
 The reference's three-operand einsums are contracted in a fixed order
 that never materialises a (B, nc, Q, Q, H, P) tensor: the decay factors
@@ -21,18 +25,22 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (causal_conv1d, conv1d_step, rms_norm,
                                        rms_norm_spec)
-from repro_torch.models.sharding_ctx import contract, head_local, write
+from repro_torch.models.sharding_ctx import (contract, head_local,
+                                             is_dtensor, write)
 from repro_torch.models.spec import TensorSpec
 
 Cache = Dict[str, torch.Tensor]
 
 
 def ssm_specs(cfg: ModelConfig) -> Dict[str, TensorSpec]:
-    d, din, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    d, din, h = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    n = cfg.ssm_groups * cfg.ssm_state  # B and C: every group's state
     k = cfg.conv_kernel
     if din != h * cfg.ssm_head_dim:
         raise ValueError("d_inner must equal ssm_heads*ssm_head_dim")
-    return {
+    if h % cfg.ssm_groups:
+        raise ValueError("ssm_heads must divide over ssm_groups")
+    s = {
         "w_z": TensorSpec((d, din), ("d_model", "d_inner")),
         "w_x": TensorSpec((d, din), ("d_model", "d_inner")),
         "w_B": TensorSpec((d, n), ("d_model", None)),
@@ -47,17 +55,23 @@ def ssm_specs(cfg: ModelConfig) -> Dict[str, TensorSpec]:
         "norm": rms_norm_spec(din),
         "w_out": TensorSpec((din, d), ("d_inner", "d_model")),
     }
+    if cfg.ssm_conv_bias:
+        s["conv_x_bias"] = TensorSpec((din,), ("d_inner",), init="zeros")
+        s["conv_B_bias"] = TensorSpec((n,), (None,), init="zeros")
+        s["conv_C_bias"] = TensorSpec((n,), (None,), init="zeros")
+    return s
 
 
 def ssm_cache_specs(cfg: ModelConfig, batch: int) -> Dict[str, TensorSpec]:
     h, pdim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     k, din = cfg.conv_kernel, cfg.d_inner
+    gn = cfg.ssm_groups * n
     return {
         "state": TensorSpec((batch, h, pdim, n), ("batch", "heads", None, None),
                             init="zeros", dtype="float32"),
         "conv_x": TensorSpec((batch, k - 1, din), ("batch", None, "d_inner"), init="zeros"),
-        "conv_B": TensorSpec((batch, k - 1, n), ("batch", None, None), init="zeros"),
-        "conv_C": TensorSpec((batch, k - 1, n), ("batch", None, None), init="zeros"),
+        "conv_B": TensorSpec((batch, k - 1, gn), ("batch", None, None), init="zeros"),
+        "conv_C": TensorSpec((batch, k - 1, gn), ("batch", None, None), init="zeros"),
     }
 
 
@@ -112,6 +126,32 @@ def _ssd_chunked(
     return y.to(x.dtype), state
 
 
+def _ssd_grouped(x, a, bm, cm, chunk, init_state, groups: int):
+    """``_ssd_chunked`` with B and C in ``groups`` groups, bm and cm (B, S,
+    G x N): group j's heads, the j-th H / G of them, run against its own
+    B and C."""
+    if groups == 1:
+        return _ssd_chunked(x, a, bm, cm, chunk, init_state)
+    hg, n = x.shape[2] // groups, bm.shape[-1] // groups
+    ys, states = [], []
+    for j in range(groups):
+        heads, cols = slice(j * hg, (j + 1) * hg), slice(j * n, (j + 1) * n)
+        y, st = _ssd_chunked(
+            x[:, :, heads], a[:, :, heads], bm[..., cols], cm[..., cols],
+            chunk, None if init_state is None else init_state[:, heads])
+        ys.append(y)
+        states.append(st)
+    return torch.cat(ys, dim=2), torch.cat(states, dim=1)
+
+
+def _per_head(m: torch.Tensor, heads: int, groups: int) -> torch.Tensor:
+    """(B, G x N) -> (B, H, N): each head's group of B or C."""
+    b = m.shape[0]
+    return m.reshape(b, groups, 1, -1).expand(
+        b, groups, heads // groups, m.shape[-1] // groups).reshape(
+        b, heads, -1)
+
+
 def ssm_apply(
     cfg: ModelConfig,
     prm: Dict[str, torch.Tensor],
@@ -138,10 +178,17 @@ def ssm_apply(
     a_coef = -torch.exp(prm["A_log"].to(f32))  # (H,)
 
     d_skip = prm["D"]
+    g = cfg.ssm_groups
+    if g > 1 and is_dtensor(xin):
+        raise NotImplementedError("grouped B/C on a mesh: the heads' split "
+                                  "does not follow the groups")
     if cache is not None and s == 1:  # decode
-        xs, conv_x = conv1d_step(xr[:, 0], cache["conv_x"], prm["conv_x"])
-        bs_, conv_B = conv1d_step(br[:, 0], cache["conv_B"], prm["conv_B"])
-        cs_, conv_C = conv1d_step(cr[:, 0], cache["conv_C"], prm["conv_C"])
+        xs, conv_x = conv1d_step(xr[:, 0], cache["conv_x"], prm["conv_x"],
+                                 prm.get("conv_x_bias"))
+        bs_, conv_B = conv1d_step(br[:, 0], cache["conv_B"], prm["conv_B"],
+                                  prm.get("conv_B_bias"))
+        cs_, conv_C = conv1d_step(cr[:, 0], cache["conv_C"], prm["conv_C"],
+                                  prm.get("conv_C_bias"))
         xs, bs_, cs_ = F.silu(xs), F.silu(bs_), F.silu(cs_)
 
         def step(xs, dt0, a_coef, d_skip, bs_, cs_, state0):
@@ -149,10 +196,18 @@ def ssm_apply(
             h = dt0.shape[1]
             xh = xs.reshape(b, h, pdim).to(f32)
             dec = torch.exp(a_coef[None] * dt0)  # (B,H)
-            db = dt0[:, :, None, None] * torch.einsum("bhp,bn->bhpn", xh,
-                                                      bs_.to(f32))
-            state = dec[:, :, None, None] * state0 + db
-            y = torch.einsum("bhpn,bn->bhp", state, cs_.to(f32))
+            if g == 1:
+                db = torch.einsum("bhp,bn->bhpn", xh, bs_.to(f32))
+            else:
+                db = torch.einsum("bhp,bhn->bhpn", xh,
+                                  _per_head(bs_, h, g).to(f32))
+            state = dec[:, :, None, None] * state0 + dt0[:, :, None,
+                                                         None] * db
+            if g == 1:
+                y = torch.einsum("bhpn,bn->bhp", state, cs_.to(f32))
+            else:
+                y = torch.einsum("bhpn,bhn->bhp", state,
+                                 _per_head(cs_, h, g).to(f32))
             y = y + d_skip.to(f32)[None, :, None] * xh
             return y.reshape(b, 1, h * pdim).to(xin.dtype), state
 
@@ -165,9 +220,9 @@ def ssm_apply(
                          ("conv_B", conv_B), ("conv_C", conv_C)):
             write(cache[key], new)
     else:
-        xs = F.silu(causal_conv1d(xr, prm["conv_x"]))
-        bs_ = F.silu(causal_conv1d(br, prm["conv_B"]))
-        cs_ = F.silu(causal_conv1d(cr, prm["conv_C"]))
+        xs = F.silu(causal_conv1d(xr, prm["conv_x"], prm.get("conv_x_bias")))
+        bs_ = F.silu(causal_conv1d(br, prm["conv_B"], prm.get("conv_B_bias")))
+        cs_ = F.silu(causal_conv1d(cr, prm["conv_C"], prm.get("conv_C_bias")))
 
         def scan(xs, dt, a_coef, d_skip, bs_, cs_, init):
             b, s = xs.shape[:2]
@@ -175,8 +230,8 @@ def ssm_apply(
             xh = xs.reshape(b, s, h, pdim)
             a = a_coef[None, None, :] * dt  # (B,S,H)
             xdt = xh.to(f32) * dt[..., None]
-            y, final_state = _ssd_chunked(xdt.to(xin.dtype), a, bs_, cs_,
-                                          cfg.ssm_chunk, init)
+            y, final_state = _ssd_grouped(xdt.to(xin.dtype), a, bs_, cs_,
+                                          cfg.ssm_chunk, init, g)
             y = y.to(f32) + d_skip.to(f32)[None, None, :, None] * xh.to(f32)
             return y.reshape(b, s, h * pdim).to(xin.dtype), final_state
 
@@ -192,5 +247,12 @@ def ssm_apply(
             write(cache["conv_B"], br[:, s - (k - 1):, :])
             write(cache["conv_C"], cr[:, s - (k - 1):, :])
 
-    y = rms_norm(y * F.silu(z.to(f32)).to(y.dtype), prm["norm"], cfg.norm_eps)
+    y = y * F.silu(z.to(f32)).to(y.dtype)
+    if g == 1:
+        y = rms_norm(y, prm["norm"], cfg.norm_eps)
+    else:  # each group of d_inner / G on its own
+        din = y.shape[-1]
+        y = rms_norm(y.reshape(b, s, g, din // g),
+                     prm["norm"].reshape(g, din // g),
+                     cfg.norm_eps).reshape(b, s, din)
     return contract("bse,ed->bsd", y, prm["w_out"], torch.matmul), cache

@@ -8,6 +8,12 @@ Block types
   moe    : RMSNorm -> self-attn -> +res ; RMSNorm -> MoE FFN -> +res  (+aux)
   rglru  : RMSNorm -> RG-LRU recurrent block -> +res ; RMSNorm -> MLP -> +res
   ssm    : RMSNorm -> mamba2/SSD block -> +res      (no separate MLP)
+  moe_only  : RMSNorm -> MoE FFN -> +res  (+aux; no attention, no cache)
+  attn_only : RMSNorm -> self-attn (full causal) -> +res  (no MLP)
+
+The last two are Nemotron-H's E and * blocks; with ``ssm`` (its M) they
+make its published pattern. A ``Tracer`` handed to ``stage_apply`` reaches
+every MoE layer, which counts its routing in ``Tracer.metrics``.
 
 A stage's cache is stacked like its parameters; layer r reads and writes
 slice r of it in place (a view), where the reference's scan re-stacks the
@@ -30,6 +36,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp_apply, mlp_specs, rms_norm, rms_norm_spec
 from repro_torch.models.sharding_ctx import constrain
 from repro_torch.models.spec import stack_specs
+from repro_torch.obs.trace import NULL_TRACER
 
 
 # --------------------------------------------------------------------------
@@ -53,6 +60,10 @@ def block_param_specs(cfg: ModelConfig, btype: str) -> Dict[str, Pytree]:
         s["ffn"] = mlp_specs(d, cfg.d_ff)
     elif btype == "ssm":
         s["ssm"] = ssm_mod.ssm_specs(cfg)
+    elif btype == "moe_only":
+        s["ffn"] = moe_mod.moe_specs(cfg)
+    elif btype == "attn_only":
+        s["attn"] = attn.attn_specs(cfg)
     else:
         raise ValueError(f"unknown block type {btype}")
     return s
@@ -61,8 +72,10 @@ def block_param_specs(cfg: ModelConfig, btype: str) -> Dict[str, Pytree]:
 def block_cache_specs(
     cfg: ModelConfig, btype: str, batch: int, capacity: int
 ) -> Dict[str, Pytree]:
-    if btype in ("attn", "moe"):
+    if btype in ("attn", "moe", "attn_only"):
         return attn.attn_cache_specs(cfg, batch, capacity)
+    if btype == "moe_only":
+        return {}
     if btype == "lattn":
         cap = min(capacity, cfg.sliding_window or capacity)
         return attn.attn_cache_specs(cfg, batch, cap)
@@ -88,6 +101,7 @@ def block_apply(
     t: Optional[torch.Tensor] = None,
     cache: Optional[Dict[str, torch.Tensor]] = None,
     image_embeds: Optional[torch.Tensor] = None,
+    tracer=NULL_TRACER,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], torch.Tensor]:
     """Returns (x, cache, aux): the block's cache, written in place (None
     without one), and the MoE router's load-balance loss, 0 for the other
@@ -101,7 +115,7 @@ def block_apply(
         x = constrain(x + y, ("batch", "seq", "d_model"))
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         if btype == "moe":
-            y, aux = moe_mod.moe_apply(cfg, p["ffn"], h)
+            y, aux = moe_mod.moe_apply(cfg, p["ffn"], h, tracer)
         else:
             y = mlp_apply(p["ffn"], h)
         x = constrain(x + y, ("batch", "seq", "d_model"))
@@ -118,6 +132,14 @@ def block_apply(
         x = constrain(x + mlp_apply(p["ffn"], h), ("batch", "seq", "d_model"))
     elif btype == "ssm":
         y, new_cache = ssm_mod.ssm_apply(cfg, p["ssm"], h, cache=cache)
+        x = constrain(x + y, ("batch", "seq", "d_model"))
+    elif btype == "moe_only":
+        y, aux = moe_mod.moe_apply(cfg, p["ffn"], h, tracer)
+        x = constrain(x + y, ("batch", "seq", "d_model"))
+        new_cache = cache
+    elif btype == "attn_only":
+        y, new_cache = attn.self_attention(cfg, p["attn"], h, positions,
+                                           cache=cache, t=t)
         x = constrain(x + y, ("batch", "seq", "d_model"))
     else:
         raise ValueError(btype)
@@ -153,10 +175,12 @@ def stage_apply(
     cache: Optional[Pytree] = None,
     image_embeds: Optional[torch.Tensor] = None,
     training: bool = False,
+    tracer=NULL_TRACER,
 ) -> Tuple[torch.Tensor, Optional[Pytree], torch.Tensor]:
     """Apply the super-block ``reps`` times, layer r reading slice r of the
     stacked parameters and of the stacked cache. Returns (x, cache, the
-    blocks' aux losses summed); the cache is ``cache``, written in place."""
+    blocks' aux losses summed); the cache is ``cache``, written in place.
+    Under remat a layer's MoE counts again when it is recomputed."""
 
     def body(h, p_r, c_r):
         aux_r = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -165,7 +189,7 @@ def stage_apply(
             h, _, aux = block_apply(
                 cfg, bt, p_r[key], h, positions=positions, t=t,
                 cache=c_r[key] if c_r is not None else None,
-                image_embeds=image_embeds)
+                image_embeds=image_embeds, tracer=tracer)
             aux_r = aux_r + aux
         return h, aux_r
 

@@ -43,6 +43,7 @@ from repro.ckpt import save_checkpoint as j_save_checkpoint
 from repro.models import model as JM
 from repro_torch import configs, interop, tree_leaves
 from repro_torch.ckpt import load_checkpoint, save_checkpoint
+from repro_torch.configs import ModelConfig
 from repro_torch.models import model as M
 from _torch_families import (BIAS, MOE, _batch, _cfgs, _close, _grads_port,
                              _params)
@@ -77,9 +78,15 @@ def test_arch_ids_are_the_references_that_the_port_carries():
     assert set(configs.ARCH_IDS) <= set(jconfigs.ARCH_IDS)
     assert [a for a in jconfigs.ARCH_IDS if a in configs.ARCH_IDS] == \
         configs.ARCH_IDS
+    # the port's config is the reference's plus port-only fields (Nemotron-
+    # H's), each at the default that computes what the reference computes
+    defaults = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
     for name in configs.ARCH_IDS + ["example-100m"]:
-        assert dataclasses.asdict(configs.get_config(name)) == \
-            dataclasses.asdict(jconfigs.get_config(name))
+        port = dataclasses.asdict(configs.get_config(name))
+        want = dataclasses.asdict(jconfigs.get_config(name))
+        assert {k: port[k] for k in want} == want
+        assert {k: v for k, v in port.items() if k not in want} == \
+            {k: defaults[k] for k in port if k not in want}
 
 
 # --------------------------------------------------------------------------
