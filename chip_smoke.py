@@ -19,10 +19,15 @@ with a non-zero exit; no phase catches its own error):
     qwen3-0.6b's leaves, a misaligned view and 70 pairs, and each of those
     models' fold must be one launch; the single pair's time is printed
     beside the time one launch a pair gave, and each fold's beside the
-    same fold made one launch a leaf (``table_phase`` runs this alone);
+    same fold made one launch a leaf (``table_phase`` runs this alone).
+    batch_fold, the drain's backlog fold, is held bit for bit against its
+    plain version at every width, launch shape, repeat and misaligned
+    view, timed with 8 distinct updates at MAIN_N, and run in drain loops
+    through the queue's spill to host memory, to disk and kept on the card
+    (``batch_phase`` runs this alone);
  4. the main path: ``Platform().train`` of qwen3-0.6b at full width (bf16),
-    3 parties, 2 FedAvg rounds; the streaming fold must go through the
-    pair_fuse kernel. One real fold of a party's update (all 14 leaves,
+    3 parties, 2 FedAvg rounds; each drain must be one batch_fold launch
+    and the probe must go through the pair_fuse kernel. One real fold of a party's update (all 14 leaves,
     synchronised) is timed beside the t_pair probe, which must predict it
     within 25 %. Then the same path at a small size on the card and on the
     CPU from the same weights (``conditioned``), which must agree;
@@ -488,8 +493,9 @@ def table_phase(torch) -> dict:
     for text in build.build_log.values():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
-        log(f"  {len(regs)} instantiations, {min(regs)}-{max(regs)} "
-            f"registers/thread, {spills} bytes of spills")
+        if regs:  # a host routine has none
+            log(f"  {len(regs)} instantiations, {min(regs)}-{max(regs)} "
+                f"registers/thread, {spills} bytes of spills")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t_pf, _ = time_kernels(torch, gen)
     single = single_pair_line(t_pf)
@@ -508,6 +514,277 @@ def single_pair_line(t: dict) -> dict:
         f"one launch a pair gave {before} ms: "
         f"{'no slower' if t['ms'] <= before else 'slower'}")
     return {"ms": t["ms"], "bound_ms": t["bound_ms"], "before_ms": before}
+
+
+# --------------------------------------------------------------------------
+# phase 3 and 18: batch_fold, the backlog fold C_MAX updates a launch
+# --------------------------------------------------------------------------
+def _batch_leaves(torch, gen, sizes, dtype, off=0):
+    """One update of leaves of ``sizes`` elements in ``dtype``, each a view
+    ``off`` elements into its own buffer."""
+    return [torch.randn(n + off, generator=gen, device="cuda").to(dtype)[off:]
+            for n in sizes]
+
+
+def check_batch_fold(torch, gen, sizes) -> float:
+    """``batch_fold`` against ``batch_fold_ref`` on the card, bit for bit,
+    each call making the launches ``plan`` lays out: mamba2-130m's 17 leaves
+    (fp32 accumulator, bf16 updates) at every width 1 to 8, starting the
+    accumulator, into a new one and in place; at width 8 and 3 at every
+    legal launch shape; every update a view one element off its vector
+    alignment with one update three times in the batch; and 300 leaves
+    (sizes up to 300,000, an empty one) of fp32 updates (30) and bf16 ones
+    (270, more than a table takes): three launches. Returns the largest
+    absolute error (0)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.batch_fold import (C_MAX, Operands, batch_fold,
+                                                plan)
+    from repro_torch.kernels.ref import batch_fold_ref
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    vec, threads = build.DEFAULT_SHAPES["batch_fold"]
+    every = [(None, None)] + [(v * t, v) for v, t in build.SHAPES
+                              if (v, t) != (vec, threads)]
+
+    def held(name, acc, ups, ws, shapes=((None, None),)):
+        want = [batch_fold_ref(None if acc is None else acc[i],
+                               [u[i] for u in ups], ws)
+                for i in range(len(ups[0]))]
+        launches = len(plan([Operands(u.dtype, u.numel(), 0, 0, ())
+                             for u in ups[0]], vec, threads))
+        for bn, kb in shapes:
+            for in_place in ((False, True) if acc is not None else (False,)):
+                a = None if acc is None else [x.clone() for x in acc]
+                l0, u0 = batch_fold.launches, batch_fold.updates
+                got = batch_fold(a, ups, ws, in_place=in_place, bn=bn, kb=kb)
+                if (batch_fold.launches - l0, batch_fold.updates - u0) != (
+                        launches, launches * len(ups)):
+                    raise AssertionError(f"batch_fold {name}: "
+                                         f"{batch_fold.launches - l0} launches")
+                for i, (g, w) in enumerate(zip(got, want, strict=True)):
+                    if in_place and g is not a[i]:
+                        raise AssertionError(f"batch_fold {name}: not in place")
+                    if g.dtype != f32 or not torch.equal(g, w):
+                        raise AssertionError(
+                            f"batch_fold {name} at bn={bn} kb={kb} "
+                            f"in_place={in_place}: leaf {i} of "
+                            f"{tuple(w.shape)} differs from batch_fold_ref")
+                del got, a
+        return launches
+
+    ws = [float(w) for w in torch.randint(100, 1001, (C_MAX,),
+                                          generator=torch.Generator()
+                                          .manual_seed(SEED)).tolist()]
+    ups = [_batch_leaves(torch, gen, sizes, bf16) for _ in range(C_MAX)]
+    acc = _batch_leaves(torch, gen, sizes, f32)
+    for c in range(1, C_MAX + 1):
+        shapes = every if c in (3, C_MAX) else ((None, None),)
+        held(f"width {c} start", None, ups[:c], ws[:c], shapes)
+        held(f"width {c}", acc, ups[:c], ws[:c], shapes)
+    log(f"  batch_fold over mamba2-130m's {len(sizes)} leaves: widths 1-"
+        f"{C_MAX}, starting, into a new and in place, the bits of "
+        f"batch_fold_ref (widths 3 and {C_MAX} at all {len(every)} legal "
+        f"launch shapes) ok")
+    del ups
+    mis = [_batch_leaves(torch, gen, sizes, bf16, off=1) for _ in range(5)]
+    batch = [mis[0], mis[1], mis[0], mis[2], mis[3], mis[0], mis[4], mis[1]]
+    held("misaligned, repeated", None, batch, ws)
+    held("misaligned, repeated", acc, batch, ws)
+    log("  batch_fold of views one element off alignment, an update three "
+        "times in the batch: the bits of batch_fold_ref ok")
+    del mis, batch, acc
+    rng = torch.Generator().manual_seed(SEED)
+    sizes300 = torch.randint(1, 300_000, (300,), generator=rng).tolist()
+    sizes300[77] = 0
+    dts = [f32 if i % 10 == 0 else bf16 for i in range(300)]
+    ups = [[torch.randn(n, generator=gen, device="cuda").to(d)
+            for n, d in zip(sizes300, dts)] for _ in range(C_MAX)]
+    acc = [torch.randn(n, generator=gen, device="cuda") for n in sizes300]
+    n_launch = held("300 leaves", acc, ups, ws)
+    held("300 leaves start", None, ups[:5], ws[:5])
+    log(f"  batch_fold over 300 leaves of fp32 and bf16 updates: "
+        f"{n_launch} launches, the bits of batch_fold_ref ok")
+    del ups, acc
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return 0.0
+
+
+def time_batch_fold(torch, gen) -> dict:
+    """Device time of one ``batch_fold`` of C_MAX distinct bf16 updates at
+    MAIN_N into an fp32 accumulator in place, beside its bound (the
+    accumulator read and written once, each update read once: 24 bytes an
+    element), at every legal launch shape; and the same updates folded one
+    pair_fuse launch each, as the streaming fold does."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.batch_fold import C_MAX, batch_fold
+    from repro_torch.kernels.ops import accumulate
+
+    n = MAIN_N
+    acc = torch.randn(n, generator=gen, device="cuda")
+    ups = [torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+           for _ in range(C_MAX)]
+    ws = [0.37] * C_MAX
+    shapes = [build.default_tile("batch_fold")] + [
+        (v * t, v) for v, t in build.SHAPES
+        if (v * t, v) != build.default_tile("batch_fold")]
+    by_shape = {}
+    for bn, kb in shapes:
+        by_shape[f"{bn // kb}x{kb}"] = cuda_ms(lambda: batch_fold(
+            [acc], [[u] for u in ups], ws, in_place=True, bn=bn, kb=kb))
+    ms = by_shape[f"{shapes[0][0] // shapes[0][1]}x{shapes[0][1]}"]
+    streaming = cuda_ms(lambda: [accumulate([acc], [u], 0.37) for u in ups])
+    bound, by = bound_ms(n * (4 + 4 + 2 * C_MAX), 2 * C_MAX * n)
+    out = {"ms": ms, "bound_ms": bound, "bound_by": by,
+           "streaming_ms": streaming, "by_shape": by_shape}
+    best = min(by_shape, key=by_shape.get)
+    log(f"  batch_fold of {C_MAX} distinct bf16 updates at N={n:,}: "
+        f"{ms:.4f} ms (bound {bound:.4f} ms by {by}, {ms / bound:.4f} x); "
+        f"{C_MAX} streaming folds {streaming:.4f} ms ({streaming / ms:.3f} x);"
+        f" best shape {best} {by_shape[best]:.4f} ms; all {json.dumps(by_shape)}")
+    del acc, ups
+    torch.cuda.synchronize()
+    return out
+
+
+def drain_loop(torch, gen, sizes, rounds: int = 20, per_round: int = 203,
+               pool: int = 8) -> dict:
+    """``rounds`` JIT rounds of mamba2-130m's leaves on the card through
+    ``MessageQueue``, ``drain`` and ``finish_round``: ``per_round`` updates a
+    round from a pool of ``pool`` bf16 trees. Round 0's accumulator is held
+    bit for bit against the streaming fold (``FusionState.fold`` one message
+    at a time); each round takes ceil(per_round / 8) ``batch_fold`` launches
+    and no ``pair_fuse`` one; the bytes the card holds after each round,
+    once the queue's spill is done, stay flat unless the spill kept models
+    on the card; and every fused model
+    polled from offset 0 equals what ``finish_round`` returned."""
+    from repro_torch.core.queue import MessageQueue
+    from repro_torch.fl.aggregator import FOLD_WIDTH, AggregationExecutor
+    from repro_torch.fl.fusion import FusionState
+    from repro_torch.kernels.batch_fold import batch_fold
+    from repro_torch.kernels.pair_fuse import pair_fuse
+
+    bf16 = torch.bfloat16
+    trees = [{f"w{i:02d}": t for i, t in enumerate(
+        _batch_leaves(torch, gen, sizes, bf16))} for _ in range(pool)]
+    model = {k: v.clone() for k, v in trees[0].items()}
+    rng = torch.Generator().manual_seed(SEED)
+    q = MessageQueue()
+    agg = AggregationExecutor("loop", "fedavg", q)
+    held, returned = [], []
+    for r in range(rounds):
+        picks = torch.randint(0, pool, (per_round,), generator=rng).tolist()
+        n_ex = torch.randint(100, 1001, (per_round,), generator=rng).tolist()
+        for i, (j, n) in enumerate(zip(picks, n_ex)):
+            q.publish_update("loop", f"p{i}", trees[j], r, n)
+        l0, u0, p0 = batch_fold.launches, batch_fold.updates, pair_fuse.launches
+        if agg.drain(r) != per_round:
+            raise AssertionError(f"round {r}: drain folded the wrong count")
+        got = (batch_fold.launches - l0, batch_fold.updates - u0,
+               pair_fuse.launches - p0)
+        if got != (-(-per_round // FOLD_WIDTH), per_round, 0):
+            raise AssertionError(f"round {r}: (batch_fold launches, updates,"
+                                 f" pair_fuse launches) {got}")
+        if r == 0:
+            st = FusionState()
+            for j, n in zip(picks, n_ex):
+                st = st.fold(trees[j], float(n))
+            if st.total_weight != agg.state.total_weight or not all(
+                    torch.equal(st.acc[k], agg.state.acc[k]) for k in st.acc):
+                raise AssertionError("the batched drain's accumulator differs"
+                                     " from the streaming fold's")
+            del st
+        model = agg.finish_round(model, r)
+        returned.append({k: v.cpu() for k, v in model.items()})
+        q.spill.wait()
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+    q.poll_updates("loop", "aggregator")  # releases the last model
+    q.spill.wait()
+    late = q.topic("fused/loop").poll("late")
+    if [m.offset for m in late] != list(range(rounds)) or any(
+            not torch.equal(m.value[k].cpu(), want[k])
+            for m, want in zip(late, returned) for k in want):
+        raise AssertionError("a fused model polled from offset 0 differs "
+                             "from what finish_round returned")
+    on_card = sum(any(v.is_cuda for v in m.value.values()) for m in late)
+    model_bytes = 2 * sum(sizes)
+    st = q.spill.stats
+    out = {"rounds": rounds, "held_bytes": held, "to_memory": st.to_memory,
+           "to_disk": st.to_disk, "kept": st.kept, "on_card_at_end": on_card,
+           "waited_s": st.waited_s}
+    log(f"  drain loop, {rounds} rounds of {per_round} updates over "
+        f"mamba2-130m's leaves: bytes on the card after each round "
+        f"{held[0]:,} .. {max(held):,} (spread {max(held) - min(held[1:]):,},"
+        f" a model {model_bytes:,}); fused models to host memory "
+        f"{st.to_memory}, to disk {st.to_disk}, kept on the card {st.kept}, "
+        f"{on_card} on the card at the end, publishing waited "
+        f"{st.waited_s:.3f} s for the spill; "
+        f"round 0 the streaming fold's bits; every model polled from "
+        f"offset 0 equals finish_round's")
+    if on_card != st.kept or not st.kept and (
+            max(held[1:]) - min(held[1:]) > model_bytes // 2):
+        raise AssertionError(f"the card's bytes grow over the rounds: {held}"
+                             f", {on_card} models on the card")
+    del trees, model, q, agg, late, returned
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def batch_checks(torch, gen, sizes) -> dict:
+    """``batch_fold``'s time, its checks over mamba2-130m's leaves
+    ``sizes``, and the drain loops through the spill's three routes: every
+    model to host memory, kept on the card (no host memory), to disk (no
+    host memory and no room on the card)."""
+    from repro_torch.core import spill
+
+    t = time_batch_fold(torch, gen)
+    err = check_batch_fold(torch, gen, sizes)
+    loop = drain_loop(torch, gen, sizes)
+    reserves = (spill.RESERVE_BYTES, spill.DEVICE_RESERVE_SHARE,
+                spill.DISK_RESERVE_BYTES)
+    try:
+        spill.RESERVE_BYTES = 1 << 62
+        card = drain_loop(torch, gen, sizes, rounds=4)
+        spill.DEVICE_RESERVE_SHARE = 1.0
+        disk = drain_loop(torch, gen, sizes, rounds=6)
+    finally:
+        (spill.RESERVE_BYTES, spill.DEVICE_RESERVE_SHARE,
+         spill.DISK_RESERVE_BYTES) = reserves
+    if (disk["to_disk"], card["kept"]) != (6, 4):
+        raise AssertionError(f"the spill's routes: {disk}, {card}")
+    return {"time": t, "max_abs_err": err, "loop": loop, "disk": disk,
+            "card": card}
+
+
+def batch_phase(torch) -> dict:
+    """batch_fold's checks, time and the drain loop on their own, after the
+    card's line and the build: ``PYTHONPATH=src python3 -c "import sys,
+    torch; sys.path.insert(0, '.'); import chip_smoke;
+    chip_smoke.batch_phase(torch)"``."""
+    from repro_torch import configs, tree_leaves
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+
+    log(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    log(f"built in {build.build_all():.2f} s")
+    text = build.build_log.get("batch_fold", "")
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+    spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
+    if regs:
+        log(f"  batch_fold: {len(regs)} instantiations, {min(regs)}-"
+            f"{max(regs)} registers/thread, {spills} bytes of spills")
+    configs.load_all()
+    sizes = [math.prod(s.shape) for s in tree_leaves(M.param_specs(
+        configs.get_config("mamba2-130m")))]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    res = batch_checks(torch, gen, sizes)
+    log("  batch phase summary: " + json.dumps(res))
+    return res
 
 
 def check_fused_agg(torch, gen):
@@ -679,6 +956,7 @@ def main_path(torch):
     from repro_torch import configs, tree_leaves
     from repro_torch.api import Platform
     from repro_torch.core.jobspec import FLJobSpec, PartySpec
+    from repro_torch.kernels.batch_fold import batch_fold
     from repro_torch.kernels.fused_agg import fused_agg
     from repro_torch.kernels.pair_fuse import pair_fuse
     from repro_torch.models import model as M
@@ -701,13 +979,14 @@ def main_path(torch):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    pair_fuse.launches = fused_agg.launches = 0
+    pair_fuse.launches = fused_agg.launches = batch_fold.launches = 0
     t0 = time.perf_counter()
     res = Platform().train(cfg, job, initial_params=init, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"pair_fuse": pair_fuse.launches,
-                "fused_agg": fused_agg.launches}
+                "fused_agg": fused_agg.launches,
+                "batch_fold": batch_fold.launches}
 
     rt = res.runtime
     with torch.no_grad():
@@ -726,7 +1005,10 @@ def main_path(torch):
     log(f"  launches during the main path: {launches}")
     log(f"  metrics: {res.metrics}")
     if launches["pair_fuse"] <= 0:
-        raise AssertionError("the main path never launched pair_fuse")
+        raise AssertionError("the main path's probe never launched pair_fuse")
+    if launches["batch_fold"] != job.rounds:
+        raise AssertionError("the main path's drains are not one batch_fold "
+                             "launch a round")
     check_trained(torch, cfg, res, loss0)
     fold_against_probe(torch, res)
     del init
@@ -1206,13 +1488,14 @@ def family_path(torch, name: str, layers: int, condition: bool = False,
     of its layers (and the config's other fields in ``over``): 3 parties,
     2 FedAvg rounds on phase 4's data sizes, the
     initial model drawn on the card from the seed (and ``conditioned``
-    with ``condition``). Every fold must go
-    through pair_fuse, the eval loss must drop and stay finite, and the
-    probe must predict one real fold. Returns (the run, its kernel
+    with ``condition``). Every drain must go
+    through batch_fold (the probe through pair_fuse), the eval loss must
+    drop and stay finite, and the probe must predict one real fold. Returns (the run, its kernel
     launches)."""
     from repro_torch import configs
     from repro_torch.api import Platform
     from repro_torch.core.jobspec import FLJobSpec, PartySpec
+    from repro_torch.kernels.batch_fold import batch_fold
     from repro_torch.kernels.fused_agg import fused_agg
     from repro_torch.kernels.pair_fuse import pair_fuse
     from repro_torch.models import model as M
@@ -1240,14 +1523,15 @@ def family_path(torch, name: str, layers: int, condition: bool = False,
         init = conditioned(torch, M.init(cfg, torch.Generator(
             device="cuda").manual_seed(SEED)), torch.Generator().manual_seed(
             SEED))
-    pair_fuse.launches = fused_agg.launches = 0
+    pair_fuse.launches = fused_agg.launches = batch_fold.launches = 0
     t0 = time.perf_counter()
     res = Platform().train(cfg, job, n_sequences=48, eval_sequences=16,
                            seed=SEED, initial_params=init)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"pair_fuse": pair_fuse.launches,
-                "fused_agg": fused_agg.launches}
+                "fused_agg": fused_agg.launches,
+                "batch_fold": batch_fold.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
     rt = res.runtime
     with torch.no_grad():  # the runtime's initial model, drawn again
@@ -1266,8 +1550,9 @@ def family_path(torch, name: str, layers: int, condition: bool = False,
         f"{res.records[-1].global_loss:.6f}; Platform.train wall={wall:.3f} s"
         f" (host clock, calibration, probe and eval included); peak device "
         f"memory={peak:.2f} GiB; launches {launches}")
-    if launches["pair_fuse"] <= 0:
-        raise AssertionError(f"{name}: no fold launched pair_fuse")
+    if launches["pair_fuse"] <= 0 or launches["batch_fold"] < job.rounds:
+        raise AssertionError(f"{name}: the probe or a drain launched no "
+                             f"kernel: {launches}")
     check_trained(torch, cfg, res, loss0)
     fold_against_probe(torch, res)
     log(f"  peak device memory with the fold timed: "
@@ -1332,7 +1617,7 @@ def recorded_steps(losses: dict):
 def examples(torch) -> None:
     """``federated_100m`` at its defaults (example-100m at full width and
     depth, 4 parties, 10 FedProx rounds of 192 sequences), ``quickstart``'s
-    training half and ``multijob_scheduler``; each fold through pair_fuse.
+    training half and ``multijob_scheduler``; each drain through batch_fold.
 
     ``federated_100m`` must run its 10 rounds and price them on a finite
     timeline, and diverge where the JAX package's example does at these
@@ -1343,10 +1628,11 @@ def examples(torch) -> None:
     overflowing a step later), so every eval loss is NaN."""
     from repro_torch.examples import (federated_100m, multijob_scheduler,
                                       quickstart)
+    from repro_torch.kernels.batch_fold import batch_fold
     from repro_torch.kernels.pair_fuse import pair_fuse
 
     free(torch)
-    pair_fuse.launches = 0
+    pair_fuse.launches = batch_fold.launches = 0
     losses: dict = {}
     undo = recorded_steps(losses)
     t0 = time.perf_counter()
@@ -1362,7 +1648,8 @@ def examples(torch) -> None:
         f"container-seconds {out['container_seconds']:.4f} (virtual clock); "
         f"mean t_rnd prediction error (rounds 2+) "
         f"{100 * out['t_rnd_pred_err']:.2f} %; wall {wall:.3f} s (host "
-        f"clock); {pair_fuse.launches} pair_fuse launches; peak device "
+        f"clock); {pair_fuse.launches} pair_fuse, {batch_fold.launches} "
+        f"batch_fold launches; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     first_bad = {}
     for pid, xs in sorted(losses.items()):
@@ -1371,8 +1658,9 @@ def examples(torch) -> None:
             None)
         log(f"  {pid}'s first local steps: losses {xs[:4]}; first "
             f"non-finite at step {first_bad[pid]}")
-    if pair_fuse.launches <= 0:
-        raise AssertionError("federated_100m never launched pair_fuse")
+    if pair_fuse.launches <= 0 or batch_fold.launches <= 0:
+        raise AssertionError("federated_100m's probe or drains launched no "
+                             "kernel")
     timeline = (out["container_seconds"], out["t_rnd_pred_err"])
     if len(res.records) != 10 or not all(0 <= x < 1e9 for x in timeline):
         raise AssertionError(f"federated_100m: {len(res.records)} rounds, "
@@ -1387,7 +1675,7 @@ def examples(torch) -> None:
     del out, res
 
     free(torch)
-    pair_fuse.launches = 0
+    pair_fuse.launches = batch_fold.launches = 0
     t0 = time.perf_counter()
     res, ao = quickstart.train()  # raises itself if the loss did not drop
     torch.cuda.synchronize()
@@ -1396,11 +1684,12 @@ def examples(torch) -> None:
         f"{res.records[-1].global_loss:.6f}"
         f", JIT {res.metrics.container_seconds:.4f} vs always-on "
         f"{ao.container_seconds:.4f} container-s (virtual clock); wall "
-        f"{time.perf_counter() - t0:.3f} s; {pair_fuse.launches} pair_fuse "
-        f"launches; peak device memory "
+        f"{time.perf_counter() - t0:.3f} s; {pair_fuse.launches} pair_fuse, "
+        f"{batch_fold.launches} batch_fold launches; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if pair_fuse.launches <= 0:
-        raise AssertionError("quickstart never launched pair_fuse")
+    if pair_fuse.launches <= 0 or batch_fold.launches <= 0:
+        raise AssertionError("quickstart's probe or drains launched no "
+                             "kernel")
     del res, ao
 
     _, metrics = multijob_scheduler.main()
@@ -1455,8 +1744,8 @@ def recorded_routes():
     calls: list = []
     route = moe._route
 
-    def recording(cfg, router, x):
-        out = route(cfg, router, x)
+    def recording(cfg, router, x, *rest):  # rest: the correction bias
+        out = route(cfg, router, x, *rest)
         calls.append(out[2])
         return out
 
@@ -2261,13 +2550,14 @@ def benchmarks_on_card(torch, card: str) -> dict:
     (the rows to chiprun_out/kernel_bench.json); real_ablation on
     qwen3-0.6b at full width and depth from its seeded weights, 3 parties,
     2 rounds of 48 sequences (the reference's default, example-100m,
-    diverges from round 0 at its settings: ROADMAP Queue 3), which must
-    fold through pair_fuse and in which JIT must bill no more
+    diverges from round 0 at its settings: ROADMAP Queue 3), whose drains
+    must fold through batch_fold and in which JIT must bill no more
     container-seconds than eager-AO; periodicity at the reference's sizes.
     Returns each one's seconds, launches and results."""
     from repro_torch import configs
     from repro_torch.benchmarks import kernel_bench, periodicity, real_ablation
     from repro_torch.core import STRATEGIES
+    from repro_torch.kernels.batch_fold import batch_fold
     from repro_torch.kernels.fused_agg import fused_agg
     from repro_torch.kernels.pair_fuse import pair_fuse
     from repro_torch.kernels.quant_agg import quant_agg
@@ -2280,13 +2570,15 @@ def benchmarks_on_card(torch, card: str) -> dict:
     def counted(name, fn):
         free(torch)
         pair_fuse.launches = fused_agg.launches = quant_agg.launches = 0
+        batch_fold.launches = 0
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = {"pair_fuse": pair_fuse.launches,
                     "fused_agg": fused_agg.launches,
-                    "quant_agg": quant_agg.launches}
+                    "quant_agg": quant_agg.launches,
+                    "batch_fold": batch_fold.launches}
         summary[name] = {"seconds": secs, "launches": launches,
                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         log(f"  {name}: {secs:.3f} s (host clock, synchronised); kernel "
@@ -2323,8 +2615,9 @@ def benchmarks_on_card(torch, card: str) -> dict:
                      "p95_latency_s": m.p95_latency,
                      "container_seconds": m.container_seconds}
         for m in rows})
-    if summary["real_ablation"]["launches"]["pair_fuse"] <= 0:
-        raise AssertionError("real_ablation never launched pair_fuse")
+    if summary["real_ablation"]["launches"]["batch_fold"] <= 0:
+        raise AssertionError("real_ablation's drains never launched "
+                             "batch_fold")
     if not real_ablation.jit_within_always_on(rows):
         raise AssertionError(f"real_ablation: JIT billed "
                              f"{jit.container_seconds} > eager-AO "
@@ -2622,12 +2915,15 @@ def main() -> int:
 
     # 2. build
     secs = build.build_all()
-    log(f"built {sorted(build.SIGNATURES)} in {secs:.2f} s")
-    for name, text in sorted(build.build_log.items()):
+    log(f"built {sorted(build.SIGNATURES)} and the host routines "
+        f"{sorted(build.ROUTINES)} in {secs:.2f} s")
+    for name in sorted(build.SIGNATURES):
+        text = build.build_log.get(name, "")
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", text))
-        log(f"  {name}: {len(regs)} instantiations, {min(regs)}-{max(regs)} "
-            f"registers/thread, {spills} bytes of spills")
+        if regs:
+            log(f"  {name}: {len(regs)} instantiations, {min(regs)}-"
+                f"{max(regs)} registers/thread, {spills} bytes of spills")
 
     # 3. kernels against their plain versions, and their times
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2651,6 +2947,9 @@ def main() -> int:
         f"library_ms is null")
     single_pair_line(t_pf)
     time_table_folds(torch, gen, table_sizes)
+    torch.cuda.empty_cache()
+    batch = batch_checks(torch, gen, table_sizes["mamba2-130m"])
+    t_bf = batch["time"]
     torch.cuda.empty_cache()
 
     # 4. the main path
@@ -2711,7 +3010,8 @@ def main() -> int:
     flops13 = flops_on_card(torch, train11)
     search13 = launch_shape_search(torch, smi, table_search)
     kernel_limit([{"name": n, **t} for n, t in (
-        ("pair_fuse", t_pf), ("fused_agg", t_fa), ("quant_agg", t_qa))])
+        ("pair_fuse", t_pf), ("fused_agg", t_fa), ("quant_agg", t_qa),
+        ("batch_fold", t_bf))])
     log("  phase 13 summary: " + json.dumps(
         {"card": smi, "roofline": rows13, "flops": flops13,
          "search": search13}))
@@ -2749,6 +3049,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/quant_agg.cu",
          "replaces": "src/repro/kernels/quant_agg.py:37",
          "launches": quant_launches, "max_abs_err": err_qa, **t_qa},
+        {"name": "batch_fold", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/batch_fold.cu",
+         "replaces": None, "launches": main_launches["batch_fold"],
+         "max_abs_err": batch["max_abs_err"], "ms": t_bf["ms"],
+         "bound_ms": t_bf["bound_ms"], "bound_by": t_bf["bound_by"]},
     ]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all (host "
         f"clock, the build included; {smi})")

@@ -11,6 +11,12 @@ explicit offset commits, optional file-backed persistence.
 With a wall-clock ``Tracer`` the queue records a ``queue.publish`` span
 for each ``publish_update`` and a ``queue.poll`` span for each
 ``poll_updates``; with the default ``NULL_TRACER`` it reads no clock.
+
+A fused model published on the card moves off it, to host memory or disk
+(``spill``, a ``core.spill.HostSpill``): it is held at ``publish_fused``
+and released to the spill's thread at the next ``poll_updates``, so its
+copy overlaps the next drain's folds. Offsets, keys, order and what a poll
+returns stay the same; the payload is never dropped.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import time
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+from repro_torch.core.spill import HostSpill
 from repro_torch.obs.trace import NULL_TRACER, wall_clock
 
 
@@ -93,6 +100,7 @@ class MessageQueue:
     def __init__(self, persist_dir: Optional[str] = None, *,
                  tracer=NULL_TRACER):
         self.tracer = wall_clock(tracer)
+        self.spill = HostSpill()
         self._dir = Path(persist_dir) if persist_dir else None
         if self._dir:
             self._dir.mkdir(parents=True, exist_ok=True)
@@ -127,6 +135,7 @@ class MessageQueue:
                      parent: Optional[int] = None) -> List[Message]:
         """``Topic.poll`` of ``updates/<job_id>``; traced as ``queue.poll``
         under the span ``parent`` (its job and round)."""
+        self.spill.release()
         tr = self.tracer
         if tr.enabled:
             sid = tr.open("queue", "poll", job_id, parent=parent)
@@ -145,6 +154,10 @@ class MessageQueue:
 
     def publish_fused(self, job_id: str, round_idx: int, model: Any,
                       timestamp: Optional[float] = None) -> int:
-        return self.topic(f"fused/{job_id}").append(
-            str(round_idx), model, timestamp
-        )
+        """Append ``model`` to ``fused/<job_id>``; a model on the card is
+        held for the spill (module docstring)."""
+        t = self.topic(f"fused/{job_id}")
+        off = t.append(str(round_idx), model, timestamp)
+        if self.spill.takes(model):
+            self.spill.hold(t._log[off])
+        return off

@@ -8,9 +8,13 @@ Supports the three behaviours JIT scheduling needs:
   * parallel aggregation: shard updates over N workers, merge partials
     (linearity of ⊕ guarantees the same result).
 
+``drain`` folds a backlog up to ``FOLD_WIDTH`` updates a ``batch_fold``
+launch; ``aggregate`` and ``FusionState.merge`` fold with ``pair_fuse``.
+
 With a wall-clock ``Tracer`` a ``drain`` is an ``agg.drain`` span whose
-children are the queue's ``queue.poll`` and one ``agg.fold`` a message
-folded (its ``pair_fuse`` launches and its queue wait), and
+children are the queue's ``queue.poll`` and one ``agg.fold`` a batch
+folded (its ``batch_fold`` launches, its updates and its first message's
+queue wait), and
 ``finish_round`` an ``agg.finish`` span timed on the card by two CUDA
 events. On the card both count the allocator's ``cudaMalloc`` calls
 (``alloc.device_allocs``) at their open and close only.
@@ -24,8 +28,11 @@ import torch
 from repro_torch import Pytree
 from repro_torch.core.queue import MessageQueue
 from repro_torch.fl.fusion import FusionAlgorithm, FusionState, get_algorithm
-from repro_torch.kernels.pair_fuse import pair_fuse
+from repro_torch.kernels.batch_fold import C_MAX, batch_fold
 from repro_torch.obs.trace import NULL_TRACER, wall_clock
+
+#: updates ``drain`` folds a launch: the most ``batch_fold`` takes
+FOLD_WIDTH = C_MAX
 
 
 def _device_allocs() -> Optional[int]:
@@ -58,7 +65,15 @@ class AggregationExecutor:
 
     # ---- queue-driven incremental path ---------------------------------------
     def drain(self, round_idx: int, max_messages: int = 1 << 30) -> int:
-        """Fold all pending updates for `round_idx` from the queue."""
+        """Fold all pending updates for `round_idx` from the queue.
+
+        The kept messages are folded in message order, ``FOLD_WIDTH`` at a
+        time (fewer in the last batch), one ``batch_fold`` launch a batch:
+        the same bits as folding them one by one. The drain's first batch
+        writes a new accumulator (a checkpoint may hold the old one); its
+        later batches update that one in place. Each message is committed
+        once the batch that holds it, or that follows it if it is stale, is
+        folded."""
         tr = self.tracer
         sid = allocs = None
         if tr.enabled:
@@ -68,32 +83,38 @@ class AggregationExecutor:
         msgs = self.queue.poll_updates(self.job_id, self.group, max_messages,
                                        parent=sid)
         n = 0
-        for m in msgs:
-            if m.value["round"] != round_idx:
-                topic.commit(self.group, m.offset)  # stale round: drop
-                continue
-            w = self.alg.weight_of(m.value.get("n_examples", 1))
-            if tr.enabled:
-                self._fold_traced(m, w, sid)
-            else:
-                self.state = self.state.fold(m.value["update"], w)
-            topic.commit(self.group, m.offset)
-            n += 1
+        batch = []
+        for i, m in enumerate(msgs):
+            if m.value["round"] == round_idx:  # else a stale round: dropped
+                batch.append(m)
+            if len(batch) == FOLD_WIDTH or i == len(msgs) - 1:
+                if batch:
+                    self._fold(batch, n > 0, sid)
+                    n += len(batch)
+                    batch = []
+                topic.commit(self.group, m.offset)
         if tr.enabled:
             tr.close(sid, folded=n, stale=len(msgs) - n,
                      **self._allocs_since(allocs))
         return n
 
-    def _fold_traced(self, m, w: float, parent: int) -> None:
-        """``drain``'s fold of message ``m`` as an ``agg.fold`` span: the
-        ``pair_fuse`` launches it made, and ns from the message's
-        timestamp to the fold's start."""
+    def _fold(self, batch, in_place: bool, parent: Optional[int]) -> None:
+        """Fold the messages ``batch`` into the state; traced, an
+        ``agg.fold`` span: the ``batch_fold`` launches it made, the updates
+        it folded, and ns from the first message's timestamp to its
+        start."""
+        ups = [m.value["update"] for m in batch]
+        ws = [self.alg.weight_of(m.value.get("n_examples", 1)) for m in batch]
         tr = self.tracer
+        if not tr.enabled:
+            self.state = self.state.fold_batch(ups, ws, in_place=in_place)
+            return
         sid = tr.open("agg", "fold", parent=parent)
-        launches = pair_fuse.launches
-        self.state = self.state.fold(m.value["update"], w)
-        tr.close(sid, launches=pair_fuse.launches - launches,
-                 wait_ns=tr.start_ns(sid) - round(m.timestamp * 1e9))
+        launches = batch_fold.launches
+        self.state = self.state.fold_batch(ups, ws, in_place=in_place)
+        tr.close(sid, launches=batch_fold.launches - launches,
+                 updates=len(batch),
+                 wait_ns=tr.start_ns(sid) - round(batch[0].timestamp * 1e9))
 
     def _allocs_since(self, allocs: Optional[int]) -> dict:
         """``device_allocs``, the allocator's ``cudaMalloc`` calls since
@@ -107,7 +128,8 @@ class AggregationExecutor:
 
     def checkpoint(self) -> None:
         """Preemption: persist the partial aggregate (§5.5). The queue holds
-        the accumulator by reference, which is why folding is out of place."""
+        the accumulator by reference, which is why a drain's first batch
+        writes a new one."""
         self.queue.checkpoint_partial(
             self.job_id,
             {"acc": self.state.acc, "total_weight": self.state.total_weight,

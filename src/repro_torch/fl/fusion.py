@@ -18,7 +18,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from repro_torch import Pytree, tree_map
-from repro_torch.kernels import accumulate, fuse_updates
+from repro_torch.kernels import accumulate, accumulate_batch, fuse_updates
 
 
 @dataclasses.dataclass
@@ -34,6 +34,23 @@ class FusionState:
             acc=accumulate(self.acc, update, weight),
             total_weight=self.total_weight + weight,
             n_fused=self.n_fused + 1,
+        )
+
+    def fold_batch(self, updates: Sequence[Pytree], weights: Sequence[float],
+                   *, in_place: bool = False) -> "FusionState":
+        """``fold`` of each update in turn, in one ``batch_fold`` launch
+        (at most ``batch_fold.C_MAX`` updates): the same bits, the weights
+        summed in the same order. ``in_place`` updates this state's
+        accumulator itself; otherwise a new one is made, as ``fold`` does,
+        since a checkpointed partial holds the old one by reference."""
+        tw = self.total_weight
+        for w in weights:
+            tw += w
+        return FusionState(
+            acc=accumulate_batch(self.acc, updates, weights,
+                                 in_place=in_place),
+            total_weight=tw,
+            n_fused=self.n_fused + len(updates),
         )
 
     def merge(self, other: "FusionState") -> "FusionState":

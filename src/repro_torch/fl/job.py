@@ -57,14 +57,17 @@ def probe_t_pair(leaf_sizes: Sequence[int], update_dtype: torch.dtype,
     update in ``update_dtype``, with leaves of ``leaf_sizes`` elements, into
     an fp32 accumulator of the same leaves, already on ``device``, after
     3 untimed folds, with the device synchronised inside each timed
-    call. The fold is the aggregator's own (``kernels.ops.accumulate``: one
+    call. The fold is the streaming one, the paper's t_pair
+    (``kernels.ops.accumulate``: one
     ``pair_fuse`` wsum launch a fold, over a table of every leaf, so that a
     small model's fold is bound by the card and not by the shared host's
     speed, which drifts between this probe and the folds it predicts;
     PERF.md section 6), and the runtime passes the global model's leaf
     sizes and dtype, so the probe pays what a real fold pays for its
     leaves (the small ones' blocks at the grid's tail) as well as for each
-    byte. On the card the probe is the full model; the
+    byte. A drain folds a backlog up to eight updates a launch
+    (``kernels.batch_fold``) and spends less an update than this; the
+    probe does not model that. On the card the probe is the full model; the
     CPU probes at most ``CPU_PROBE_CAP`` bytes of accumulator, every leaf
     cut by the same factor, and scales the time by the elements left out
     (fusion is linear in bytes)."""

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels.
+"""Build and load the hand-written CUDA kernels (and the host routines
+beside them, ``ROUTINES``).
 
 Each ``csrc/<name>.cu`` exports a plain C launch function. At first use all
 sources are compiled together (one ``nvcc`` process each, started at once)
@@ -38,6 +39,18 @@ SIGNATURES = {
                   [_vp, _vp, _vp, _i, _ll, _i, _i, _i, _vp]),
     # q, scales, out, k, n, vec, threads, stream
     "quant_agg": ("quant_agg_launch", [_vp, _vp, _vp, _i, _ll, _i, _i, _vp]),
+    # rows (count x 13 int64: in, out, 8 update pointers, n, first block,
+    # vector flag), count, weights, c, start, u_dtype, vec, threads, stream
+    "batch_fold": ("batch_fold_table_launch",
+                   [_vp, _i, _vp, _i, _i, _i, _i, _i, _vp]),
+}
+# host routines built and loaded as the kernels are: name -> (C function,
+# argtypes); each returns 0 or an error code
+ROUTINES = {
+    # src, dst, bytes (count int64 each), count, stage0, stage1, chunk, fd,
+    # threads, stream
+    "spill_copy": ("spill_copy", [_vp, _vp, _vp, _i, _vp, _vp, _ll, _i, _i,
+                                  _vp]),
 }
 
 #: the launch shapes (elements a thread, threads a block) every library
@@ -49,8 +62,12 @@ SHAPES = tuple((v, t) for v in (4, 8, 16) for t in (128, 256, 512, 1024))
 #: 1 % faster than 8 x 256, beyond the spread of its runs (0.5075 against
 #: 0.5136 ms at 155,582,464; chip_smoke.py phase 13 on an NVIDIA H100 80GB
 #: HBM3 at 700 W). fused_agg and quant_agg gained nothing beyond the spread.
+#: batch_fold takes 4 x 128: with 8 distinct bf16 updates it ran 10-12 %
+#: faster than 8 x 256 (16-byte loads of every update) at mamba2-130m's,
+#: qwen3-0.6b's and MAIN_N's elements (1.251 against 1.412 ms at
+#: 155,582,464, 89 % of its bound), and 1-2 % faster than 4 x 256.
 DEFAULT_SHAPES = {"pair_fuse": (4, 256), "fused_agg": (8, 256),
-                  "quant_agg": (8, 256)}
+                  "quant_agg": (8, 256), "batch_fold": (4, 128)}
 
 
 def default_tile(kernel: str) -> Tuple[int, int]:
@@ -97,7 +114,8 @@ def build_all() -> float:
     """Compile every kernel whose library is missing, all in parallel.
     Returns the seconds it took; raises with nvcc's output on failure."""
     t0 = time.perf_counter()
-    todo = {n: _target(n) for n in SIGNATURES if not _target(n).exists()}
+    todo = {n: _target(n) for n in (*SIGNATURES, *ROUTINES)
+            if not _target(n).exists()}
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -128,7 +146,7 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build_all()
         lib = ctypes.CDLL(str(_target(name)))
-        fn_name, argtypes = SIGNATURES[name]
+        fn_name, argtypes = {**SIGNATURES, **ROUTINES}[name]
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -16,6 +16,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch import Pytree, tree_leaves, tree_map, tree_unflatten
+from repro_torch.kernels.batch_fold import batch_fold
 from repro_torch.kernels.fused_agg import fused_agg
 from repro_torch.kernels.pair_fuse import pair_fuse_many
 from repro_torch.kernels.quant_agg import quant_agg, quantize
@@ -37,10 +38,11 @@ def fuse_updates(
     if weights is None:
         weights = [1.0 / k] * k
 
+    w = torch.tensor(list(weights), dtype=torch.float32,
+                     device=tree_leaves(updates[0])[0].device)
+
     def fuse_leaf(*leaves: torch.Tensor) -> torch.Tensor:
         stack = torch.stack([l.reshape(-1) for l in leaves])  # (K, N)
-        w = torch.tensor(list(weights), dtype=torch.float32,
-                         device=stack.device)
         out = fused_agg(stack, w, bn=bn, kb=kb)
         return out.reshape(leaves[0].shape).to(leaves[0].dtype)
 
@@ -51,7 +53,8 @@ def accumulate(acc: Optional[Pytree], update: Pytree, weight: float, *,
                bn: Optional[int] = None, kb: Optional[int] = None) -> Pytree:
     """Streaming (incremental) fusion: acc + weight*update, OUT OF PLACE.
 
-    This is the aggregator's inner operation: each arriving update is folded
+    This is the streaming fold (``FusionState.fold``; ``drain`` folds a
+    backlog with ``accumulate_batch``): each update is folded
     into the running fp32 accumulator with the pair_fuse kernel, one
     launch a fold that covers every leaf (``pair_fuse_many``: a table of
     the leaves, one table a dtype pair), so aggregation state is one
@@ -61,11 +64,24 @@ def accumulate(acc: Optional[Pytree], update: Pytree, weight: float, *,
     sum is the one the fp32 copy of the update would give."""
     if acc is None:
         return tree_map(lambda u: u.to(torch.float32) * weight, update)
-    pairs = []
-    tree_map(lambda a, u: pairs.append((a, u)), acc, update)
     return tree_unflatten(acc, pair_fuse_many(
-        [a for a, _ in pairs], [u for _, u in pairs], op="wsum", wa=1.0,
+        tree_leaves(acc), tree_leaves(update), op="wsum", wa=1.0,
         wb=float(weight), bn=bn, kb=kb))
+
+
+def accumulate_batch(acc: Optional[Pytree], updates: Sequence[Pytree],
+                     weights: Sequence[float], *,
+                     in_place: bool = False) -> Pytree:
+    """The streaming fold of up to ``batch_fold.C_MAX`` updates at once:
+    ``acc + w_0 u_0 + ... `` in message order, the same bits as
+    ``accumulate`` of each in turn, in one ``batch_fold`` launch that
+    covers every leaf; with no ``acc`` a new accumulator starts at the
+    first update. Out of place unless ``in_place``, which updates ``acc``
+    itself: only an accumulator that no checkpoint holds may be."""
+    outs = batch_fold(None if acc is None else tree_leaves(acc),
+                      [tree_leaves(u) for u in updates], weights,
+                      in_place=in_place)
+    return tree_unflatten(updates[0] if acc is None else acc, outs)
 
 
 def fuse_quantized(

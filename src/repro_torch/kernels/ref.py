@@ -6,7 +6,7 @@ are what ``chip_smoke.py`` holds each kernel against. They accept the
 kernels' launch shape (``bn``, ``kb``) and ignore it."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -36,6 +36,20 @@ def pair_fuse_ref(a: torch.Tensor, b: torch.Tensor, op: str, wa: float = 0.5,
     else:
         raise ValueError(op)
     return out.to(a.dtype)
+
+
+def batch_fold_ref(acc: Optional[torch.Tensor],
+                   updates: Sequence[torch.Tensor],
+                   weights: Sequence[float]) -> torch.Tensor:
+    """The streaming fold of ``updates`` into the fp32 accumulator ``acc``,
+    one at a time in order: ``acc + w_0 u_0``, then ``+ w_1 u_1``, ...,
+    each product and each sum rounded to fp32; with no ``acc`` the sum
+    starts at ``w_0 u_0``. Port-only (``batch_fold`` has no TPU twin)."""
+    out = None if acc is None else acc.to(torch.float32)
+    for u, w in zip(updates, weights):
+        p = u.to(torch.float32) * w
+        out = p if out is None else out + p
+    return out
 
 
 def quant_agg_ref(q: torch.Tensor, scales: torch.Tensor, *,

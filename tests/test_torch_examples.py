@@ -79,23 +79,30 @@ def test_federated_100m_run_matches_reference():
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_probe_sizes_its_operands_from_the_leaves(dtype, monkeypatch):
-    """The probe is the aggregator's own fold (``ops.accumulate``, one
+    """The probe is the streaming fold (``ops.accumulate``, one
     pair_fuse launch over every leaf) of an update in the model's dtype into an fp32
     accumulator with the model's leaf sizes: the operands of the
-    aggregator's folds, leaf for leaf. The CPU caps the accumulator at
+    aggregator's folds, leaf for leaf, which a drain makes in one
+    ``batch_fold`` launch of its updates. The CPU caps the accumulator at
     CPU_PROBE_CAP bytes, every leaf cut by the same factor, and scales the
     time by the elements left out."""
     cfg = configs.get_config("qwen3-0.6b").reduced(
         num_layers=1, d_model=32, vocab_size=64, d_ff=64, dtype=dtype)
-    calls = []
-    real = ops.pair_fuse_many
+    calls, batches = [], []
+    real, real_batch = ops.pair_fuse_many, ops.batch_fold
 
     def spy(a_list, b_list, **kw):
         calls.extend((a.dtype, b.dtype, a.numel())
                      for a, b in zip(a_list, b_list))
         return real(a_list, b_list, **kw)
 
+    def spy_batch(acc, updates, weights, **kw):
+        batches.append([(torch.float32, u.dtype, u.numel())
+                        for u in updates[0]] * len(updates))
+        return real_batch(acc, updates, weights, **kw)
+
     monkeypatch.setattr(ops, "pair_fuse_many", spy)
+    monkeypatch.setattr(ops, "batch_fold", spy_batch)
     spec = FLJobSpec(job_id="probe", model_arch=cfg.name,
                      model_bytes=M.n_params(cfg) * 2, rounds=1, lr=0.05,
                      batch_size=8,
@@ -107,9 +114,10 @@ def test_probe_sizes_its_operands_from_the_leaves(dtype, monkeypatch):
     sizes = [s.numel() for s in tree_leaves(res.runtime.global_params)]
     leaves = [(torch.float32, dt, k) for k in sizes]
     assert calls[:10 * len(sizes)] == leaves * 10  # 3 warmup + 7 timed
-    # the folds that followed: one per leaf of the second update, with the
-    # same operands
-    assert calls[10 * len(sizes):] == leaves
+    # the folds that followed: the drain's one batch of both updates, with
+    # the same operands, and no pair_fuse
+    assert calls[10 * len(sizes):] == []
+    assert batches == [leaves * 2]
     assert res.runtime.t_pair0 > 0
     # t_upd still prices the bf16 bytes the parties ship
     assert res.runtime.spec.model_bytes == n * 2

@@ -37,7 +37,8 @@ def test_shapes_are_the_libraries_set():
     pairs = {(int(v), int(t)) for v, t in re.findall(r"X\((\d+), (\d+)\)",
                                                      body)}
     assert pairs == set(build.SHAPES) and len(build.SHAPES) == 12
-    assert set(build.DEFAULT_SHAPES) == set(KERNELS)
+    assert set(build.DEFAULT_SHAPES) == set(build.SIGNATURES)
+    assert set(KERNELS) < set(build.SIGNATURES)
     assert all(s in build.SHAPES for s in build.DEFAULT_SHAPES.values())
 
 

@@ -1,7 +1,7 @@
 """The port's wall-clock spans on the queue and the aggregator, on the CPU:
 the disabled path never touches the tracer and changes no result, a drain
-is an ``agg.drain`` span over ``queue.poll`` and one ``agg.fold`` a
-message, the spans share ``torch.profiler``'s clock, the allocator counter
+is an ``agg.drain`` span over ``queue.poll`` and one ``agg.fold`` a batch
+of messages, the spans share ``torch.profiler``'s clock, the allocator counter
 and the CUDA-event pair are read where they should be, a sim-time tracer
 is refused, and the spans export to Chrome's format."""
 import json
@@ -15,7 +15,7 @@ import repro_torch.kernels.ops as ops
 from repro_torch.core.queue import MessageQueue
 from repro_torch.fl.aggregator import AggregationExecutor
 from repro_torch.kernels import build
-from repro_torch.kernels.pair_fuse import Operands, pair_fuse, plan
+from repro_torch.kernels.batch_fold import Operands, batch_fold, plan
 from repro_torch.obs.trace import NULL_TRACER, NullTracer, Tracer
 
 torch.set_num_threads(1)
@@ -46,21 +46,20 @@ def _round(tracer, k=4, stale=1, seed=0):
 
 @pytest.fixture
 def counted_launches(monkeypatch):
-    """``pair_fuse_many`` counting a launch a dtype pair and chunk of its
-    pairs (``plan``), as it does on the card (the CPU's plain path launches
-    nothing)."""
-    real = ops.pair_fuse_many
+    """``batch_fold`` counting a launch an update dtype and chunk of its
+    leaves (``plan``), as it does on the card (the CPU's plain path
+    launches nothing)."""
+    real = ops.batch_fold
 
-    def counting(a_list, b_list, **kw):
-        launches = plan([Operands(a.dtype, b.dtype, a.numel(), a.data_ptr(),
-                                  b.data_ptr(), a.data_ptr())
-                         for a, b in zip(a_list, b_list)],
-                        *build.DEFAULT_SHAPES["pair_fuse"])
-        pair_fuse.launches += len(launches)
-        pair_fuse.pairs += sum(len(la.entries) for la in launches)
-        return real(a_list, b_list, **kw)
+    def counting(acc, updates, weights, **kw):
+        launches = plan([Operands(u.dtype, u.numel(), 0, 0, ())
+                         for u in updates[0]],
+                        *build.DEFAULT_SHAPES["batch_fold"])
+        batch_fold.launches += len(launches)
+        batch_fold.updates += len(launches) * len(updates)
+        return real(acc, updates, weights, **kw)
 
-    monkeypatch.setattr(ops, "pair_fuse_many", counting)
+    monkeypatch.setattr(ops, "batch_fold", counting)
 
 
 def test_null_tracer_is_never_called_and_changes_nothing(monkeypatch):
@@ -96,18 +95,19 @@ def test_drain_is_poll_and_one_fold_a_message(counted_launches):
     assert drain.args == {"folded": 4, "stale": 1} and folded == 4
     assert poll.parent == drain.seq and poll.args == {"messages": 5}
     folds = by["agg.fold"]
-    assert len(folds) == 4
+    assert len(folds) == 1  # the four messages of round 1 in one batch
     for s in [poll, *folds]:
         assert s.parent == drain.seq
         assert (s.job_id, s.round_idx) == (JOB, 1)
         assert drain.t0 <= s.t0 <= s.t1 <= drain.t1
-    # the first fold makes the accumulator (no launch), each later one
-    # launches once for its three leaves
-    assert [s.args["launches"] for s in folds] == [0, 1, 1, 1]
+    # the batch starts the accumulator in one launch of its three leaves
+    assert [(s.args["launches"], s.args["updates"]) for s in folds] == [
+        (1, 4)]
     for s in folds:
-        # the message's timestamp is a float of seconds (a ulp of 238 ns)
+        # the first message's timestamp is a float of seconds (a ulp of
+        # 238 ns)
         assert 0 <= s.args["wait_ns"] \
-            <= s.t0 - by["queue.publish"][0].t0 + 1_000
+            <= s.t0 - by["queue.publish"][1].t0 + 1_000
     assert (finish.job_id, finish.round_idx, finish.parent) == (JOB, 1, None)
     # off the card: no CUDA events, no allocator reading
     assert finish.device_s is None and "device_allocs" not in finish.args
